@@ -1,0 +1,68 @@
+"""Style-modulated convolution over NHWC images.
+
+Semantics of the JAX package's `ops/modulated_conv.py` (and the reference
+`modulated_conv2d`): by linearity, modulating the weight's input channels
+by the styles equals scaling the input channels, and demodulating the
+weight's output channels equals scaling the output channels. So one conv,
+shared across the batch, runs on style-scaled inputs and its output is
+rescaled. With a 1×1 kernel (SG3-R) the conv is one `torch.matmul` over the
+channel axis; larger kernels go to `F.conv2d`. Weights are HWIO.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+import torch.nn.functional as F
+
+
+def modulated_conv2d(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    s: torch.Tensor,
+    demodulate: bool = True,
+    padding: int = 0,
+    input_gain: Optional[Union[float, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Per-sample style-modulated conv over NHWC images.
+
+    Args:
+        x: input ``[N, H, W, I]`` (compute dtype: fp32 or bf16).
+        w: weights ``[kh, kw, I, O]`` (fp32).
+        s: styles ``[N, I]`` (fp32).
+        demodulate: pre-normalize w and s, demodulate output channels.
+        padding: symmetric spatial padding (int).
+        input_gain: optional scale for input channels — scalar, ``[I]``,
+            or ``[N, I]`` (the magnitude-EMA gain of alias-free layers).
+
+    Returns:
+        ``[N, H + 2*padding - kh + 1, W + 2*padding - kw + 1, O]`` in x.dtype.
+    """
+    batch = x.shape[0]
+    kh, kw, in_channels, out_channels = w.shape
+    assert x.shape[-1] == in_channels
+    assert s.shape == (batch, in_channels)
+
+    w = w.float()
+    s = s.float()
+    if demodulate:
+        w = w * torch.rsqrt(w.square().mean(dim=(0, 1, 2), keepdim=True))
+        s = s * torch.rsqrt(s.square().mean())
+        dcoefs = torch.rsqrt(s.square() @ w.square().sum(dim=(0, 1)) + 1e-8)  # [N, O]
+
+    scale = s
+    if input_gain is not None:
+        g = torch.as_tensor(input_gain, dtype=torch.float32, device=s.device)
+        scale = scale * g.reshape((1, -1) if g.ndim <= 1 else (batch, in_channels))
+
+    out_dtype = x.dtype
+    x = x * scale[:, None, None, :].to(x.dtype)
+    if kh == 1 and kw == 1 and padding == 0:
+        x = torch.matmul(x, w[0, 0].to(x.dtype))
+    else:
+        x = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).to(x.dtype),
+                     padding=padding).permute(0, 2, 3, 1)
+    if demodulate:
+        x = x * dcoefs[:, None, None, :].to(x.dtype)
+    return x.to(out_dtype).contiguous()
