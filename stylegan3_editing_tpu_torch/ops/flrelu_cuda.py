@@ -32,14 +32,10 @@ _SRC = Path(__file__).resolve().parent / "csrc" / "filtered_lrelu_fwd.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-TILE = 16          # output tile side
-CHANNEL_GROUP = 8  # channels per block
-SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
 
 launches = 0       # kernel launches since the last `reset_launches()`
 build_log = ""     # nvcc's output (ptxas register and shared-memory report)
 _lib = None
-_taps_cache: dict = {}
 
 
 def reset_launches() -> None:
@@ -77,10 +73,8 @@ def build() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     lib.sg3_flrelu_fwd.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_float] * 3
-        + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        + [ctypes.c_void_p])
     lib.sg3_flrelu_fwd.restype = ctypes.c_int
-    lib.sg3_flrelu_fwd_smem_bytes.argtypes = [ctypes.c_int] * 6
-    lib.sg3_flrelu_fwd_smem_bytes.restype = ctypes.c_size_t
     _lib = lib
     return lib
 
@@ -91,26 +85,12 @@ def output_size(length: int, up: int, pad0: int, pad1: int, tu: int, td: int) ->
 
 
 def in_envelope(fu, fd, up: int, down: int, flip_filter: bool) -> bool:
-    """Whether the kernel computes this configuration: down 2, up 2 or 4,
-    numpy filters, fu 1-D, fd 1-D or square 2-D, convolution order."""
+    """Whether the kernel computes this configuration: down 2, convolution
+    order, numpy filters, fu 1-D with 6·up taps (12 at up 2, 24 at up 4),
+    fd 12 taps, 1-D or 12×12 — every filtered layer of SG3-R and SG3-T."""
     return (isinstance(fu, np.ndarray) and isinstance(fd, np.ndarray)
             and down == 2 and up in (2, 4) and not flip_filter
-            and fu.ndim == 1
-            and (fd.ndim == 1 or (fd.ndim == 2 and fd.shape[0] == fd.shape[1])))
-
-
-def _taps(fu: np.ndarray, fd: np.ndarray, up: int,
-          device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Correlation-order fp32 taps on the device (up gain folded), cached."""
-    key = (fu.tobytes(), fu.shape, fd.tobytes(), fd.shape, up, str(device))
-    hit = _taps_cache.get(key)
-    if hit is None:
-        fu_c = np.ascontiguousarray(fu[::-1] * up, np.float32)
-        fd_c = np.ascontiguousarray(
-            fd[::-1] if fd.ndim == 1 else fd[::-1, ::-1], np.float32).reshape(-1)
-        hit = (torch.from_numpy(fu_c).to(device), torch.from_numpy(fd_c).to(device))
-        _taps_cache[key] = hit
-    return hit
+            and fu.shape == (6 * up,) and fd.shape in ((12,), (12, 12)))
 
 
 def filtered_lrelu_cuda(
@@ -153,19 +133,17 @@ def filtered_lrelu_cuda(
     if bias.shape != (c,):
         raise ValueError(f"bias shape {tuple(bias.shape)} != ({c},)")
     radial = int(fd.ndim == 2)
+    fu_c = np.ascontiguousarray(fu[::-1] * up, np.float32)
+    fd_c = np.ascontiguousarray(fd[::-1] if fd.ndim == 1 else fd[::-1, ::-1], np.float32)
 
     lib = build()
-    smem = lib.sg3_flrelu_fwd_smem_bytes(up, tu, td, radial, TILE, CHANNEL_GROUP)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"tile needs {smem} B of shared memory (> {SMEM_LIMIT})")
-    fu_t, fd_t = _taps(fu, fd, up, x.device)
     out = torch.empty((n, out_h, out_w, c), dtype=x.dtype, device=x.device)
     err = lib.sg3_flrelu_fwd(
-        x.data_ptr(), bias.data_ptr(), fu_t.data_ptr(), fd_t.data_ptr(),
+        x.data_ptr(), bias.data_ptr(), fu_c.ctypes.data, fd_c.ctypes.data,
         out.data_ptr(), 0 if x.dtype == torch.float32 else 1,
         n, h, w, c, out_h, out_w, up, tu, td, radial, py0, px0,
         float(gain), float(slope), math.inf if clamp is None else float(clamp),
-        TILE, CHANNEL_GROUP, torch.cuda.current_stream(x.device).cuda_stream)
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"filtered-lrelu kernel launch failed: cudaError {err}")
     launches += 1
