@@ -69,10 +69,12 @@ struct Shape {
     static constexpr int kGroups = (kSpan + U - 1 + kUpOut - 1) / kUpOut;
     static constexpr int kRun = kSteps + TU / U;
     static constexpr int kIn = kSteps * kGroups + TU / U;  // input side of a tile
-    static constexpr int kXPitch = pad_to(kIn * kCg, 32, 8);      // input tile row
-    static constexpr int kT1Pitch = pad_to(kSpan * kCg, 32, 8);  // W-upsampled row
-    static constexpr int kAPitch = pad_to(kSpan * kCg, 16, 4);   // up-grid row
-    static constexpr int kDPitch = pad_to(kTile * kCg, 32, 8);   // W-downsampled row
+    // Pitches ≡ kCg (mod 32) let the 32 / kCg row groups of a warp cover 32
+    // banks; the up-grid pitch is half that, as the down pass steps 2 rows.
+    static constexpr int kXPitch = pad_to(kIn * kCg, 32, kCg);    // input tile row
+    static constexpr int kT1Pitch = pad_to(kSpan * kCg, 32, kCg);  // W-upsampled row
+    static constexpr int kAPitch = pad_to(kSpan * kCg, 16, kCg / 2);  // up-grid row
+    static constexpr int kDPitch = pad_to(kTile * kCg, 32, kCg);  // W-downsampled row
     static constexpr int kBuf0 = kIn * kXPitch > kSpan * kAPitch ? kIn * kXPitch
                                                                   : kSpan * kAPitch;
     static constexpr int kBuf1 = kIn * kT1Pitch > kSpan * kDPitch ? kIn * kT1Pitch
