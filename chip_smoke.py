@@ -95,11 +95,14 @@ def main() -> int:
 
     # 2. Build.
     t0 = time.perf_counter()
-    flrelu_cuda.build()
+    lib = flrelu_cuda.build()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {' '.join(flrelu_cuda.NVCC_FLAGS)})")
     for line in flrelu_cuda.build_log.splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             print("  ptxas:", line.strip())
+    for up in (2, 4):
+        print(f"  dynamic shared memory per block, up {up}: "
+              f"{lib.sg3_flrelu_fwd_smem_bytes(up)} B")
 
     cfg = sg3_r_config(1024)
     layers = [s for s in build_synthesis_layout(cfg).layers if s.up_filter is not None]

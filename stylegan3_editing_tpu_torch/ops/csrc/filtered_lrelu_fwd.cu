@@ -271,6 +271,12 @@ int dispatch(const void* x, const void* bias, void* out, const Geometry& g,
 
 extern "C" {
 
+// Dynamic shared memory of one block at up factor 2 or 4 (ptxas does not
+// report it).
+size_t sg3_flrelu_fwd_smem_bytes(int up) {
+    return up == 2 ? Shape<2, 12, 12>::kSmemBytes : Shape<4, 24, 12>::kSmemBytes;
+}
+
 // x, out: NHWC device tensors, dtype 0 = float32, 1 = bfloat16. bias: float32
 // [c] on the device. fu, fd: host float32 correlation-order taps (fu with the
 // up gain folded in; fd 1-D, or 2-D row-major when radial). Supported: up 2

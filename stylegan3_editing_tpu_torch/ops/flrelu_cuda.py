@@ -75,6 +75,8 @@ def build() -> ctypes.CDLL:
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_float] * 3
         + [ctypes.c_void_p])
     lib.sg3_flrelu_fwd.restype = ctypes.c_int
+    lib.sg3_flrelu_fwd_smem_bytes.argtypes = [ctypes.c_int]
+    lib.sg3_flrelu_fwd_smem_bytes.restype = ctypes.c_size_t
     _lib = lib
     return lib
 
