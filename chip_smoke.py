@@ -5,9 +5,11 @@
 
 Phases (any failure exits non-zero before the result lines):
 1. device: the card's name and power limit;
-2. build: compiles both filtered-lrelu kernels (forward and backward) from
-   the repository's sources, in parallel, and prints ptxas' registers and
-   each kernel's shared memory per block;
+2. build: compiles all four kernels (filtered-lrelu forward and backward,
+   the probe's tap chains and banded products) from the repository's
+   sources, in parallel, and prints ptxas' registers, each kernel's shared
+   memory per block and the tensor-core instructions in the banded kernel's
+   SASS;
 3. per layer: the kernel against the plain PyTorch version on each of the
    14 filtered-lrelu layers of SG3-R 1024 at full size, batch 1, in the
    layer's dtype (bf16 layers against the plain version in fp32 on the
@@ -32,7 +34,13 @@ Phases (any failure exits non-zero before the result lines):
 8. timing: one whole call each of `PTI.optimize_shared` (batch 4) and
    `PTI.optimize_batch` (2 images, final render included) for 5 steps, as
    s/step and s per image-step with peak memory; and each layer's backward
-   kernel, plain and bound times at batch 4.
+   kernel, plain and bound times at batch 4;
+9. the banded-FIR probe: its entry point at its defaults in fp32 and bf16
+   (launch counts, outputs against the plain versions, the bf16 error
+   between the two forms against that of their plain versions); then each
+   probe kernel against its plain version at [76, 76, 128] and
+   [76, 76, 16896] in both dtypes, timed beside its plain version, its
+   library call (TF32 off) and its bound.
 
 TF32 is off for matmuls and cuDNN convs. The second-to-last line is the
 kernel table as JSON; the last line is ``{"ok": true, "device": ...}``.
@@ -43,11 +51,13 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -58,6 +68,11 @@ IMAGE_TOL = 1e-3           # fp32 image, kernel vs plain: sum order over 15 laye
 DB_TOL = {False: 1e-4, True: 2 ** -6}  # db (by bf16 layer), of max |db|: dx's rounding, summed
 AUTOGRAD_TOL = (1e-4, 1e-4)  # plain backward vs autograd of the plain forward (fp32)
 GRAD_TOL = 1e-3            # fp32 PTI step, kernels vs impl="ref", of each tensor's max |grad|
+FIR_TOL = 1e-5             # probe kernels vs plain, of max |ref|: sum order, split tf32 ~2^-22
+FIR_SHAPES = [(76, 76, 128), (76, 76, 16896)]  # the TPU probe's plane; 132 x 128 channels
+FIR_TAPS = 12
+FLRELU = {"filtered_lrelu_fwd": 0, "filtered_lrelu_bwd": 0}
+NO_FIR = {"fir_taps": 0, "fir_banded": 0}
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -108,6 +123,29 @@ def flrelu_bwd_work(x_shape, dy_shape, up: int, tu: int, td: int, radial: bool,
     return nbytes, n * c * (dy_up + a_up + 3 * gh * gw + down)
 
 
+def fir_work(shape, taps: int, esize: int, matrices: bool):
+    """(bytes, flops) of the probe's FIR on a [Qh, Qw, C] plane: the plane
+    read and the fp32 output written once, plus the inputs that shape the
+    filter (the banded matrices in p's dtype, or the fp32 taps of both axes);
+    the useful FLOPs, 2 per tap: the W chain on all Qh rows, then the H chain
+    per output."""
+    qh, qw, c = shape
+    i, j = qh - taps + 1, qw - taps + 1
+    shaping = esize * (j * qw + i * qh) if matrices else 4 * 2 * taps
+    nbytes = esize * qh * qw * c + 4 * i * j * c + shaping
+    return nbytes, 2 * taps * (qh * j + i * j) * c
+
+
+def sass_mma_count(lib_path) -> int:
+    """HMMA instructions in a library's SASS, or -1 without cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return -1
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    return sum("HMMA" in line for line in sass.splitlines())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card",
@@ -118,7 +156,10 @@ def main() -> int:
     from stylegan3_editing_tpu_torch.inversion import PTI, PTIOptions
     from stylegan3_editing_tpu_torch.models.sg3 import (
         Generator, build_synthesis_layout, sg3_r_config)
-    from stylegan3_editing_tpu_torch.ops import flrelu_cuda
+    from stylegan3_editing_tpu_torch.ops import cuda_build, fir_cuda, flrelu_cuda
+    from stylegan3_editing_tpu_torch.ops.banded_fir import (banded, fir_banded_ref,
+                                                            fir_taps_ref, hann_taps)
+    from stylegan3_editing_tpu_torch.scripts import exp_mxu_down as probe
     from stylegan3_editing_tpu_torch.ops.filtered_lrelu import (
         filtered_lrelu, filtered_lrelu_bwd_ref)
 
@@ -137,10 +178,10 @@ def main() -> int:
 
     # 2. Build.
     t0 = time.perf_counter()
-    libs = flrelu_cuda.build()
+    libs = cuda_build.build()
     print(f"build: {time.perf_counter() - t0:.2f} s for {len(libs)} kernels in parallel "
-          f"(nvcc {' '.join(flrelu_cuda.NVCC_FLAGS)})")
-    for name, log in flrelu_cuda.build_log.items():
+          f"(nvcc {' '.join(cuda_build.NVCC_FLAGS)})")
+    for name, log in cuda_build.build_log.items():
         for line in log.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"  ptxas {name}:", line.strip())
@@ -149,6 +190,18 @@ def main() -> int:
               f"{libs['filtered_lrelu_fwd'].sg3_flrelu_fwd_smem_bytes(up)} B, backward "
               f"{libs['filtered_lrelu_bwd'].sg3_flrelu_bwd_smem_bytes(up, 1)} B (radial fd), "
               f"{libs['filtered_lrelu_bwd'].sg3_flrelu_bwd_smem_bytes(up, 0)} B (separable)")
+    qh, qw, _ = FIR_SHAPES[0]
+    fir_out = (qh - FIR_TAPS + 1, qw - FIR_TAPS + 1)
+    print(f"  dynamic shared memory per block, probe {FIR_TAPS} taps: fir_taps "
+          f"{libs['fir_taps'].sg3_fir_taps_smem_bytes(FIR_TAPS)} B; fir_banded "
+          f"[{qh}, {qw}] -> {list(fir_out)}: "
+          f"{libs['fir_banded'].sg3_fir_banded_smem_bytes(qh, qw, *fir_out[::-1], 0)} B (fp32), "
+          f"{libs['fir_banded'].sg3_fir_banded_smem_bytes(qh, qw, *fir_out[::-1], 1)} B (bf16)")
+    hmma = sass_mma_count(cuda_build.library_path("fir_banded"))
+    print(f"  sass fir_banded: {hmma} HMMA instructions (mma.sync on the tensor cores)"
+          if hmma >= 0 else "  sass fir_banded: cuobjdump not found, HMMA not counted")
+    if hmma == 0:
+        raise SystemExit("the banded kernel issues no tensor-core instruction")
 
     cfg = sg3_r_config(1024)
     layers = [s for s in build_synthesis_layout(cfg).layers if s.up_filter is not None]
@@ -356,7 +409,7 @@ def main() -> int:
           f"{history[-1]['l2']:.6f}, lpips {history[0]['lpips']:.6f} -> "
           f"{history[-1]['lpips']:.6f}; launches {shared_launches}")
     if shared_launches != {"filtered_lrelu_fwd": 14 * shared_steps,
-                           "filtered_lrelu_bwd": 14 * shared_steps}:
+                           "filtered_lrelu_bwd": 14 * shared_steps, **NO_FIR}:
         raise SystemExit("expected 14 forward and 14 backward launches per PTI step")
     if not all(math.isfinite(h[k]) for h in history for k in ("loss", "l2", "lpips")):
         raise SystemExit("non-finite PTI loss")
@@ -371,7 +424,7 @@ def main() -> int:
           f"(plus 14 forward launches per image for the final render)")
     passes = 2 * batch_steps
     if batch_launches != {"filtered_lrelu_fwd": 14 * (passes + 2),
-                          "filtered_lrelu_bwd": 14 * passes}:
+                          "filtered_lrelu_bwd": 14 * passes, **NO_FIR}:
         raise SystemExit("expected 14 forward and 14 backward launches per image-pass")
     if not (bool(torch.isfinite(imgs).all()) and tuple(imgs.shape) == (2, 1024, 1024, 3)
             and all(bool(torch.isfinite(v).all()) for v in metrics.values())):
@@ -448,6 +501,110 @@ def main() -> int:
     print(f"time bwd all 14 layers batch 4: kernel {btot['ms']:.4f} ms, plain "
           f"{btot['plain_ms']:.4f} ms, bound {btot['bound_ms']:.4f} ms {card}")
 
+    # 9. The banded-FIR probe: its entry point at its defaults, in fp32 and
+    # bf16, is the path that launches the probe kernels.
+    probe_iters = 32
+
+    def fir_tol_ok(err, ref):
+        return err <= FIR_TOL * float(ref.abs().max())
+
+    cuda_build.reset_launches()
+    probe_out = {dt: probe.main(["--dtype", dt, "--iters", str(probe_iters)])
+                 for dt in ("f32", "bf16")}
+    torch.cuda.synchronize()
+    probe_launches = dict(cuda_build.launches)
+    # Per kernel: both dtypes, each one checked call, the warm-up and the timed calls.
+    calls = 2 * (1 + probe.WARMUP + probe_iters)
+    print(f"probe entry point, f32 and bf16, {probe_iters} timed calls each: launches "
+          f"{probe_launches}")
+    if probe_launches != {**FLRELU, "fir_taps": calls, "fir_banded": calls}:
+        raise SystemExit(f"expected {calls} launches of each probe kernel")
+    qh, qw, c = FIR_SHAPES[0]
+    taps = hann_taps(FIR_TAPS)
+    rel = {}
+    for dt, (y_vpu, y_mxu) in probe_out.items():
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        p = torch.randn((qh, qw, c), generator=torch.Generator().manual_seed(0)).to(dev, dtype)
+        mw = torch.from_numpy(banded(qw - FIR_TAPS + 1, qw, taps)).to(dev, dtype)
+        mh = torch.from_numpy(banded(qh - FIR_TAPS + 1, qh, taps)).to(dev, dtype)
+        r_vpu, r_mxu = fir_taps_ref(p, taps, taps), fir_banded_ref(p, mw, mh)
+        for name, got, ref in (("vpu-chain", y_vpu, r_vpu), ("mxu-dot", y_mxu, r_mxu)):
+            err = float((got - ref).abs().max())
+            ok = (tuple(got.shape) == tuple(ref.shape) == (qh - FIR_TAPS + 1, qw - FIR_TAPS + 1, c)
+                  and got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+                  and fir_tol_ok(err, ref))
+            print(f"check probe {dt} {name} {tuple(got.shape)}: max abs err {err:.3e} against "
+                  f"the plain version (tol {FIR_TOL:g}·max |ref|, max |ref| "
+                  f"{float(ref.abs().max()):.3g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"probe {name} output disagrees with its plain version")
+        rel[dt] = [float((a - b).abs().max()) / (float(a.abs().max()) + 1e-9)
+                   for a, b in ((y_vpu, y_mxu), (r_vpu, r_mxu))]
+        print(f"probe {dt} rel err vpu vs mxu: kernels {rel[dt][0]:.3e}, plain versions "
+              f"{rel[dt][1]:.3e}")
+    if not (rel["f32"][0] <= FIR_TOL and 0.5 <= rel["bf16"][0] / rel["bf16"][1] <= 2):
+        raise SystemExit("probe rel err vpu vs mxu is off: fp32 above the tolerance, or bf16 "
+                         "not within 2x of the plain versions' (the taps' bf16 rounding)")
+
+    # Each probe kernel against its plain version, timed beside it, its
+    # library call and its bound. Inputs from a seeded generator on the card.
+    def fir_calls(p, mw, mh, w2d):
+        return {
+            "fir_taps": (lambda: fir_cuda.fir_taps_cuda(p, taps, taps),
+                         lambda: fir_taps_ref(p, taps, taps),
+                         lambda: torch.nn.functional.conv2d(
+                             p.float().permute(2, 0, 1).unsqueeze(0), w2d, groups=p.shape[2])),
+            "fir_banded": (lambda: fir_cuda.fir_banded_cuda(p, mw, mh),
+                           lambda: fir_banded_ref(p, mw, mh),
+                           lambda: torch.einsum("iq,jp,qpc->ijc", mh.float(), mw.float(),
+                                                p.float())),
+        }
+
+    fir_rows = {}
+    with torch.inference_mode():
+        for shape in FIR_SHAPES:
+            qh, qw, c = shape
+            for dtype in (torch.float32, torch.bfloat16):
+                gen = torch.Generator(device=dev).manual_seed(400 + c)
+                p = torch.randn(shape, generator=gen, device=dev).to(dtype)
+                mw = torch.from_numpy(banded(qw - FIR_TAPS + 1, qw, taps)).to(dev, dtype)
+                mh = torch.from_numpy(banded(qh - FIR_TAPS + 1, qh, taps)).to(dev, dtype)
+                w2d = torch.from_numpy(np.outer(taps, taps)).to(dev)
+                w2d = w2d.expand(c, 1, -1, -1).contiguous()
+                for name, (kern, plain, library) in fir_calls(p, mw, mh, w2d).items():
+                    got, ref = kern(), plain()
+                    lib_out = library()
+                    if name == "fir_taps":
+                        lib_out = lib_out[0].permute(1, 2, 0)
+                    torch.cuda.synchronize()
+                    err = float((got - ref).abs().max())
+                    lib_err = float((lib_out - ref).abs().max())
+                    if not (got.shape == ref.shape and fir_tol_ok(err, ref)):
+                        raise SystemExit(f"{name} disagrees with its plain version at {shape} "
+                                         f"{dtype}: max abs err {err:.3e}")
+                    nbytes, flops = fir_work(shape, FIR_TAPS, p.element_size(),
+                                             name == "fir_banded")
+                    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+                    row = dict(max_abs_err=err, ms=time_ms(kern, 20), plain_ms=time_ms(plain, 5),
+                               library_ms=time_ms(library, 5), bound_ms=max(bytes_ms, ops_ms),
+                               bound_by="operations" if ops_ms > bytes_ms else "bytes")
+                    fir_rows[name, shape, dtype] = row
+                    print(f"time {name} {list(shape)} {str(dtype)[6:]}: kernel {row['ms']:.4f} ms, "
+                          f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
+                          f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
+                          f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP); max abs err "
+                          f"{err:.3e} (tol {FIR_TOL:g}·max |ref| {float(ref.abs().max()):.3g}), "
+                          f"library vs plain {lib_err:.3e} {card}")
+                    del got, ref, lib_out
+                del p, mw, mh, w2d
+                torch.cuda.empty_cache()
+
+    def fir_entry(name, replaces):
+        row = fir_rows[name, FIR_SHAPES[1], torch.bfloat16]
+        return {"name": name, "route": "cuda",
+                "source": f"stylegan3_editing_tpu_torch/ops/csrc/{name}.cu",
+                "replaces": replaces, "launches": probe_launches[name], **row}
+
     print(json.dumps({"kernels": [{
         "name": "filtered_lrelu_fwd",
         "route": "cuda",
@@ -472,7 +629,8 @@ def main() -> int:
         "bound_ms": btot["bound_ms"],
         "bound_by": "operations" if btot["ops_ms"] > btot["bytes_ms"] else "bytes",
         "library_ms": None,
-    }]}))
+    }, fir_entry("fir_taps", "scripts/exp_mxu_down.py:56"),
+        fir_entry("fir_banded", "scripts/exp_mxu_down.py:47")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

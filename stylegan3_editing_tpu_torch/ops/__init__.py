@@ -2,7 +2,9 @@
 
 Each op mirrors the JAX package's op of the same name. The filtered leaky
 ReLU launches hand-written CUDA kernels for CUDA tensors, forward and
-backward (`flrelu_cuda`); the rest are plain tensor ops.
+backward (`flrelu_cuda`); the rest are plain tensor ops. `banded_fir` holds
+the banded-FIR probe's FIR in both of its forms, with a kernel each
+(`fir_cuda`); `cuda_build` builds every kernel.
 """
 
 from .bias_act import activation_funcs, bias_act

@@ -1,0 +1,110 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+One registry, `KERNELS`, names each kernel's source in ``csrc/`` and the C
+functions its shared library exports, with their ctypes signatures. `build()`
+compiles every source with ``nvcc`` for ``sm_90a`` at first use, one ``nvcc``
+per source, all started together, into ``_build/`` beside the package
+(listed in ``.gitignore``). Each library is keyed by the hash of its source
+and the flags, written to a temporary file and moved into place atomically,
+then loaded with ``ctypes``. ptxas' report (registers, spills) is kept in
+`build_log`. The wrappers (`flrelu_cuda`, `fir_cuda`) count their launches in
+`launches`. There is no fallback: a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, List, NamedTuple, Tuple
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I, _F, _SIZE = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_size_t
+
+
+class Kernel(NamedTuple):
+    source: Path
+    # C function name -> (restype, argtypes)
+    functions: Dict[str, Tuple[type, List[type]]]
+
+
+KERNELS: Dict[str, Kernel] = {
+    "filtered_lrelu_fwd": Kernel(_CSRC / "filtered_lrelu_fwd.cu", {
+        "sg3_flrelu_fwd": (_I, [_P] * 5 + [_I] * 13 + [_F] * 3 + [_P]),
+        "sg3_flrelu_fwd_smem_bytes": (_SIZE, [_I])}),
+    "filtered_lrelu_bwd": Kernel(_CSRC / "filtered_lrelu_bwd.cu", {
+        "sg3_flrelu_bwd": (_I, [_P] * 6 + [_I] * 13 + [_F] * 3 + [_P]),
+        "sg3_flrelu_bwd_smem_bytes": (_SIZE, [_I, _I])}),
+    "fir_taps": Kernel(_CSRC / "fir_taps.cu", {
+        "sg3_fir_taps": (_I, [_P] * 4 + [_I] * 6 + [_P]),
+        "sg3_fir_taps_smem_bytes": (_SIZE, [_I])}),
+    "fir_banded": Kernel(_CSRC / "fir_banded.cu", {
+        "sg3_fir_banded": (_I, [_P] * 4 + [_I] * 6 + [_P]),
+        "sg3_fir_banded_smem_bytes": (_SIZE, [_I] * 5)}),
+}
+
+# Launches of each kernel since the last `reset_launches()`.
+launches: Dict[str, int] = {name: 0 for name in KERNELS}
+build_log: Dict[str, str] = {}  # nvcc's output per kernel (ptxas registers, spills)
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
+
+
+def library_path(name: str) -> Path:
+    """Where the shared library of kernel ``name`` is (or will be) built."""
+    tag = hashlib.sha256(KERNELS[name].source.read_bytes()
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return _BUILD_DIR / f"lib{name}_{tag}.so"
+
+
+def build() -> Dict[str, ctypes.CDLL]:
+    """Compile (once per source version, all sources at once) and load the
+    kernel libraries, by kernel name."""
+    if _libs:
+        return _libs
+    paths = {name: library_path(name) for name in KERNELS}
+    procs = {}
+    for name, path in paths.items():
+        if not path.exists():
+            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+            os.close(fd)
+            procs[name] = (tmp, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(KERNELS[name].source)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        build_log[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{build_log[name]}")
+        else:
+            os.replace(tmp, paths[name])  # atomic: concurrent builders see a whole file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    libs = {name: ctypes.CDLL(str(path)) for name, path in paths.items()}
+    for name, lib in libs.items():
+        for fn, (restype, argtypes) in KERNELS[name].functions.items():
+            getattr(lib, fn).restype = restype
+            getattr(lib, fn).argtypes = argtypes
+    _libs.update(libs)
+    return _libs

@@ -1,4 +1,4 @@
-"""Build, bind and launch the hand-written CUDA filtered-lrelu kernels.
+"""Launch the hand-written CUDA filtered-lrelu kernels.
 
 Two kernels, one source each in ``csrc/``:
 
@@ -13,100 +13,22 @@ fp32 operations / CUDA-core rate; each keeps the ×up intermediate grid in
 shared memory, so only its inputs and output cross device memory (see the
 notes in the sources).
 
-Each shared library is compiled with ``nvcc`` from its source at first use,
-into ``_build/`` beside the package (listed in ``.gitignore``), keyed by the
-source's hash, and loaded with ``ctypes``; the two ``nvcc`` runs go in
-parallel. Launches go on PyTorch's current stream. There is no fallback: a
-build or launch failure, or an input outside the envelope, raises.
+The shared libraries are built and loaded by `cuda_build` (``nvcc`` at
+first use, all sources in parallel); `build`, `launches`, `build_log` and
+`reset_launches` are its own, named here too. Launches go on PyTorch's
+current stream. There is no fallback: a build or launch failure, or an
+input outside the envelope, raises.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-_CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"filtered_lrelu_fwd": _CSRC / "filtered_lrelu_fwd.cu",
-           "filtered_lrelu_bwd": _CSRC / "filtered_lrelu_bwd.cu"}
-_BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-# Launches of each kernel since the last `reset_launches()`.
-launches: Dict[str, int] = {name: 0 for name in SOURCES}
-build_log: Dict[str, str] = {}  # nvcc's output per kernel (ptxas registers, spills)
-_libs: Dict[str, ctypes.CDLL] = {}
-
-
-def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       "the filtered-lrelu kernels")
-
-
-def _bind(libs: Dict[str, ctypes.CDLL]) -> None:
-    fwd, bwd = libs["filtered_lrelu_fwd"], libs["filtered_lrelu_bwd"]
-    fwd.sg3_flrelu_fwd.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_float] * 3
-        + [ctypes.c_void_p])
-    fwd.sg3_flrelu_fwd.restype = ctypes.c_int
-    fwd.sg3_flrelu_fwd_smem_bytes.argtypes = [ctypes.c_int]
-    fwd.sg3_flrelu_fwd_smem_bytes.restype = ctypes.c_size_t
-    bwd.sg3_flrelu_bwd.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [ctypes.c_float] * 3
-        + [ctypes.c_void_p])
-    bwd.sg3_flrelu_bwd.restype = ctypes.c_int
-    bwd.sg3_flrelu_bwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    bwd.sg3_flrelu_bwd_smem_bytes.restype = ctypes.c_size_t
-
-
-def build() -> Dict[str, ctypes.CDLL]:
-    """Compile (once per source version, both sources at once) and load the
-    kernel libraries, by kernel name."""
-    if _libs:
-        return _libs
-    paths, procs = {}, {}
-    for name, src in SOURCES.items():
-        tag = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-        paths[name] = _BUILD_DIR / f"lib{name}_{tag}.so"
-        if not paths[name].exists():
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-            os.close(fd)
-            procs[name] = (tmp, subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for name, (tmp, proc) in procs.items():
-        build_log[name] = proc.communicate()[0]
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{build_log[name]}")
-        else:
-            os.replace(tmp, paths[name])  # atomic: concurrent builders see a whole file
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    libs = {name: ctypes.CDLL(str(path)) for name, path in paths.items()}
-    _bind(libs)
-    _libs.update(libs)
-    return _libs
+from .cuda_build import NVCC_FLAGS, build, build_log, launches, reset_launches  # noqa: F401
 
 
 def output_size(length: int, up: int, pad0: int, pad1: int, tu: int, td: int) -> int:

@@ -12,7 +12,10 @@ import torch
 
 from stylegan3_editing_tpu_torch.models.sg3 import Generator, sg3_r_config
 from stylegan3_editing_tpu_torch.models.sg3.config import build_synthesis_layout
-from stylegan3_editing_tpu_torch.ops import flrelu_cuda
+from stylegan3_editing_tpu_torch.ops import cuda_build, fir_cuda, flrelu_cuda
+from stylegan3_editing_tpu_torch.ops.banded_fir import (banded, choose_fir_impl, fir_banded,
+                                                        fir_banded_ref, fir_taps, fir_taps_ref,
+                                                        hann_taps)
 from stylegan3_editing_tpu_torch.ops.filtered_lrelu import choose_impl
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -38,7 +41,8 @@ def test_port_imports_no_jax(path):
 def test_port_import_leaves_jax_unloaded():
     code = ("import sys, json; import stylegan3_editing_tpu_torch.models.sg3, "
             "stylegan3_editing_tpu_torch.ops, stylegan3_editing_tpu_torch.criteria, "
-            "stylegan3_editing_tpu_torch.inversion; "
+            "stylegan3_editing_tpu_torch.inversion, "
+            "stylegan3_editing_tpu_torch.scripts.exp_mxu_down; "
             "print(json.dumps(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'flax', 'stylegan3_editing_tpu'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -117,3 +121,41 @@ def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_fir_kernel_wrappers_refuse_cpu_tensors():
+    p, taps = torch.zeros((20, 21, 8)), hann_taps(4)
+    with pytest.raises(ValueError, match="CUDA"):
+        fir_cuda.fir_taps_cuda(p, taps, taps)
+    with pytest.raises(ValueError, match="CUDA"):
+        fir_cuda.fir_banded_cuda(p, torch.zeros((18, 21)), torch.zeros((17, 20)))
+
+
+@pytest.mark.parametrize("device_type,impl,expected", [
+    ("cuda", "auto", "cuda"), ("cpu", "auto", "ref"), ("cuda", "ref", "ref"),
+    ("cpu", "ref", "ref")])
+def test_fir_dispatch_by_device_type(device_type, impl, expected):
+    assert choose_fir_impl(device_type, impl) == expected
+
+
+def test_fir_dispatch_rejects_other_devices_and_impls():
+    with pytest.raises(ValueError):
+        choose_fir_impl("mps")
+    with pytest.raises(ValueError):
+        choose_fir_impl("cuda", impl="xla")
+
+
+def test_fir_dispatch_sends_cpu_tensors_to_the_plain_versions():
+    """On the CPU both dispatchers return their plain version's result and
+    launch nothing."""
+    p = torch.from_numpy(np.random.RandomState(0).randn(20, 21, 8).astype(np.float32))
+    taps = hann_taps(4)
+    mw, mh = (torch.from_numpy(banded(n, q, taps)) for n, q in ((18, 21), (17, 20)))
+    before = dict(cuda_build.launches)
+    torch.testing.assert_close(fir_taps(p, taps, taps), fir_taps_ref(p, taps, taps),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(fir_banded(p, mw, mh), fir_banded_ref(p, mw, mh), rtol=0, atol=0)
+    assert cuda_build.launches == before
+    assert set(cuda_build.launches) == {"filtered_lrelu_fwd", "filtered_lrelu_bwd", "fir_taps",
+                                        "fir_banded"}
+    assert flrelu_cuda.launches is cuda_build.launches and fir_cuda.launches is cuda_build.launches

@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels of the port against their plain versions, on the card.
 
 The filtered-lrelu forward kernel against `filtered_lrelu_ref`, the backward
-kernel against `filtered_lrelu_bwd_ref`, and autograd through both.
+kernel against `filtered_lrelu_bwd_ref`, and autograd through both; the
+banded-FIR probe's tap-chain kernel against `fir_taps_ref` and its
+tensor-core kernel against `fir_banded_ref`.
 
 These tests need a CUDA card and skip elsewhere: a CUDA kernel has no CPU
 mode. They import nothing of JAX, so they run where only PyTorch is
@@ -17,7 +19,9 @@ import torch
 from stylegan3_editing_tpu_torch.models.sg3 import (Generator, build_synthesis_layout,
                                                     sg3_r_config, sg3_t_config)
 from stylegan3_editing_tpu_torch.ops import filtered_lrelu, filtered_lrelu_bwd_ref
-from stylegan3_editing_tpu_torch.ops import flrelu_cuda
+from stylegan3_editing_tpu_torch.ops import fir_cuda, flrelu_cuda
+from stylegan3_editing_tpu_torch.ops.banded_fir import (banded, fir_banded, fir_banded_ref,
+                                                        fir_taps, fir_taps_ref, hann_taps)
 
 # u=2 pad, u=4 crop, separable, separable crop, and a narrow-channel radial layer.
 GEOMETRIES = ["L0_36_1024", "L2_52_1024", "L12_1044_64", "L13_1024_64", "L8_276_406"]
@@ -131,7 +135,8 @@ def test_loss_backward_launches_one_bwd_kernel_per_layer(cuda_device):
         G(z, impl=impl).square().mean().backward()
         torch.cuda.synchronize()
         want = {"auto": n_layers, "ref": 0}[impl]
-        assert flrelu_cuda.launches == {"filtered_lrelu_fwd": want, "filtered_lrelu_bwd": want}
+        assert flrelu_cuda.launches == {"filtered_lrelu_fwd": want, "filtered_lrelu_bwd": want,
+                                        "fir_taps": 0, "fir_banded": 0}
         grads[impl] = {k: p.grad.clone() for k, p in G.synthesis.named_parameters()
                        if p.grad is not None}
     assert grads["auto"].keys() == grads["ref"].keys() and grads["auto"]
@@ -155,3 +160,86 @@ def test_flrelu_bwd_kernel_raises_on_unsupported_input(cuda_device):
                                             *args)
     with pytest.raises(ValueError):  # dy of the wrong shape
         flrelu_cuda.filtered_lrelu_bwd_cuda(dy[:, 1:], x, *args)
+
+
+# (Qh, Qw, C, taps): Qw, J = Qw - taps + 1 and C off the multiples of 8 and 16
+# (MMA tiles, channel groups), and the probe's own shape.
+FIR_SHAPES = [(20, 21, 8, 12), (37, 29, 45, 4), (76, 76, 128, 12)]
+FIR_TOL = 1e-5  # of max |ref|: sum order; the split tf32 products keep ~2^-22
+
+
+def _fir_plane(shape, dtype, device, seed):
+    qh, qw, c, _ = shape
+    x = np.random.RandomState(seed).randn(qh, qw, c).astype(np.float32)
+    return torch.from_numpy(x).to(device, getattr(torch, dtype))
+
+
+def _assert_fir_close(got, ref):
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    err = float((got - ref).abs().max())
+    assert err <= FIR_TOL * float(ref.abs().max()), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", FIR_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fir_taps_kernel_matches_plain(cuda_device, shape, dtype):
+    """Tap chains with different taps (and counts) along W and H."""
+    p = _fir_plane(shape, dtype, cuda_device, seed=9)
+    rng = np.random.RandomState(10)
+    taps_w = rng.uniform(0, 1, shape[3]).astype(np.float32)
+    taps_h = rng.uniform(0, 1, max(shape[3] - 3, 1)).astype(np.float32)
+    before = fir_cuda.launches["fir_taps"]
+    got = fir_taps(p, taps_w, taps_h)
+    assert fir_cuda.launches["fir_taps"] == before + 1
+    ref = fir_taps_ref(p, taps_w, taps_h)
+    torch.cuda.synchronize()
+    _assert_fir_close(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", FIR_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("matrices", ["banded", "dense"])
+def test_fir_banded_kernel_matches_plain(cuda_device, shape, dtype, matrices):
+    """The probe's banded Hann matrices, and dense random ones (the kernel
+    must not rely on the band), with I != J."""
+    qh, qw, _, n = shape
+    p = _fir_plane(shape, dtype, cuda_device, seed=11)
+    j_out, i_out = qw - n + 1, qh - n + 2
+    if matrices == "banded":
+        mw, mh = banded(j_out, qw, hann_taps(n)), banded(i_out, qh, hann_taps(n - 1))
+    else:
+        rng = np.random.RandomState(12)
+        mw = rng.uniform(-1, 1, (j_out, qw)).astype(np.float32)
+        mh = rng.uniform(-1, 1, (i_out, qh)).astype(np.float32)
+    mw, mh = (torch.from_numpy(m).to(cuda_device, p.dtype) for m in (mw, mh))
+    before = fir_cuda.launches["fir_banded"]
+    got = fir_banded(p, mw, mh)
+    assert fir_cuda.launches["fir_banded"] == before + 1
+    ref = fir_banded_ref(p, mw, mh)
+    torch.cuda.synchronize()
+    _assert_fir_close(got, ref)
+
+
+@pytest.mark.gpu
+def test_fir_kernels_raise_on_unsupported_input(cuda_device):
+    p = torch.zeros((20, 21, 8), device=cuda_device)
+    taps = hann_taps(4)
+    mw = torch.zeros((18, 21), device=cuda_device)
+    mh = torch.zeros((17, 20), device=cuda_device)
+    with pytest.raises(TypeError):  # fp16
+        fir_cuda.fir_taps_cuda(p.half(), taps, taps)
+    with pytest.raises(TypeError):
+        fir_cuda.fir_banded_cuda(p.half(), mw.half(), mh.half())
+    with pytest.raises(TypeError):  # matrices of another dtype than p
+        fir_cuda.fir_banded_cuda(p, mw.bfloat16(), mh.bfloat16())
+    q = p.transpose(0, 1).contiguous().transpose(0, 1)  # not contiguous
+    with pytest.raises(ValueError):
+        fir_cuda.fir_taps_cuda(q, taps, taps)
+    with pytest.raises(ValueError):
+        fir_cuda.fir_banded_cuda(q, mw, mh)
+    with pytest.raises(ValueError):  # Mw's width is not Qw
+        fir_cuda.fir_banded_cuda(p, mw[:, 1:].contiguous(), mh)
+    with pytest.raises(ValueError):  # more taps than the plane is wide
+        fir_cuda.fir_taps_cuda(p, hann_taps(22), taps)
