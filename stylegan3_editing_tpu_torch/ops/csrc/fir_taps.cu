@@ -14,15 +14,17 @@
 // What the design does about it:
 // - channels run on neighbouring threads (the layout is HWC), so a warp's
 //   load or store of one pixel is 32 contiguous channels;
-// - a block holds a tile of kTi x kTj outputs of kCb channels; the W chain
-//   of the tile's kTi + Th - 1 input rows goes to shared memory and the H
-//   chain reads it from there, so only the tile's halo is read twice (from
-//   L2) and p and o cross device memory once;
-// - both chains are register-blocked: a thread slides a window of kR
-//   samples along its run and feeds kR outputs from each sample it loads, so
-//   a tap costs kR FMAs, one load and one uniform read of the tap (the taps
-//   ride in the kernel's parameter space); the tap loop is unrolled by kR,
-//   which turns the window's shifts into register renames.
+// - a block of 16 warps holds a tile of kTi x kTj outputs of kCb channels;
+//   the W chain of the tile's kTi + Th - 1 input rows goes to shared memory
+//   and the H chain reads it from there, so only the tile's halo is read
+//   twice (from L2) and p and o cross device memory once. Two blocks fit an
+//   SM (88 KB each at 12 taps);
+// - both chains are register-blocked: a thread slides a window of kR = 16
+//   samples along its run (a whole tile row of the W chain) and feeds kR
+//   outputs from each sample it loads, so a tap costs kR FMAs, one load and
+//   one uniform read of the tap (the taps ride in the kernel's parameter
+//   space); the tap loop is unrolled by kR, which turns the window's shifts
+//   into register renames.
 // TMA and pipelining are left for later work.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
@@ -34,11 +36,11 @@
 
 namespace {
 
-constexpr int kThreads = 256, kWarps = kThreads / 32;
+constexpr int kThreads = 512, kWarps = kThreads / 32;
 constexpr int kCb = 32;  // channels per block, one per lane
 constexpr int kTj = 16;  // output columns per tile
 constexpr int kTi = 32;  // output rows per tile
-constexpr int kR = 8;    // outputs per thread along a chain
+constexpr int kR = 16;   // outputs per thread along a chain
 constexpr int kMaxTaps = 64;
 
 struct Geometry {

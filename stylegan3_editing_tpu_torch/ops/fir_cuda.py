@@ -25,6 +25,7 @@ from .cuda_build import build, launches
 
 MAX_TAPS = 64                 # fir_taps.cu kMaxTaps
 MAX_QW = 128                  # fir_banded.cu kMaxQw
+MAX_ROWS = 128                # fir_banded.cu 16 * kMaxMt: J and I
 SMEM_PER_BLOCK = 232_448      # H100: the most dynamic shared memory a block can have
 
 
@@ -76,9 +77,10 @@ def fir_banded_cuda(p: torch.Tensor, mw: torch.Tensor, mh: torch.Tensor) -> torc
         if m.ndim != 2 or m.shape[1] != k or m.shape[0] < 1 or not m.is_contiguous():
             raise ValueError(f"{name} must be a contiguous [rows, {k}] matrix, got "
                              f"{tuple(m.shape)}")
-    if qw > MAX_QW:
-        raise ValueError(f"Qw = {qw} > {MAX_QW}: the kernel keeps a row of P in registers")
     j, i = mw.shape[0], mh.shape[0]
+    if qw > MAX_QW or max(j, i) > MAX_ROWS:
+        raise ValueError(f"Qw = {qw}, J = {j}, I = {i}: the kernel takes Qw <= {MAX_QW} (a row "
+                         f"of P sits in registers) and J, I <= {MAX_ROWS} (8 MMA tiles)")
     lib = build()["fir_banded"]
     smem = lib.sg3_fir_banded_smem_bytes(qh, qw, j, i, _dtype_code(p))
     if smem > SMEM_PER_BLOCK:
