@@ -49,6 +49,7 @@ Times carry the card's name and power limit.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import shutil
@@ -136,14 +137,16 @@ def fir_work(shape, taps: int, esize: int, matrices: bool):
     return nbytes, 2 * taps * (qh * j + i * j) * c
 
 
-def sass_mma_count(lib_path) -> int:
-    """HMMA instructions in a library's SASS, or -1 without cuobjdump."""
+def sass_mma_counts(lib_path):
+    """Tensor-core (HMMA) instructions in a library's SASS by opcode, or None
+    without cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
-        return -1
+        return None
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
                           timeout=120, check=True).stdout
-    return sum("HMMA" in line for line in sass.splitlines())
+    return collections.Counter(word for line in sass.splitlines() for word in line.split()
+                               if word.startswith("HMMA."))
 
 
 def main() -> int:
@@ -197,10 +200,10 @@ def main() -> int:
           f"[{qh}, {qw}] -> {list(fir_out)}: "
           f"{libs['fir_banded'].sg3_fir_banded_smem_bytes(qh, qw, *fir_out[::-1], 0)} B (fp32), "
           f"{libs['fir_banded'].sg3_fir_banded_smem_bytes(qh, qw, *fir_out[::-1], 1)} B (bf16)")
-    hmma = sass_mma_count(cuda_build.library_path("fir_banded"))
-    print(f"  sass fir_banded: {hmma} HMMA instructions (mma.sync on the tensor cores)"
-          if hmma >= 0 else "  sass fir_banded: cuobjdump not found, HMMA not counted")
-    if hmma == 0:
+    hmma = sass_mma_counts(cuda_build.library_path("fir_banded"))
+    print(f"  sass fir_banded: tensor-core instructions {dict(hmma)} (mma.sync)"
+          if hmma is not None else "  sass fir_banded: cuobjdump not found, HMMA not counted")
+    if hmma is not None and not hmma:
         raise SystemExit("the banded kernel issues no tensor-core instruction")
 
     cfg = sg3_r_config(1024)

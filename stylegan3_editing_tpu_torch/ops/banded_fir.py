@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import kernel_or_plain
 from . import fir_cuda
 
 
@@ -41,16 +42,6 @@ def banded(j_out: int, q_in: int, taps: np.ndarray, stride: int = 1) -> np.ndarr
 def hann_taps(n: int) -> np.ndarray:
     """The probe's n taps: a Hann window without its zero ends, float32."""
     return np.hanning(n + 2)[1:-1].astype(np.float32)
-
-
-def choose_fir_impl(device_type: str, impl: str = "auto") -> str:
-    """'cuda' (the kernel) or 'ref' (the plain version): CPU tensors and
-    ``impl="ref"`` take the plain version, CUDA tensors the kernel."""
-    if impl not in ("auto", "ref"):
-        raise ValueError(f"impl must be 'auto' or 'ref', got {impl!r}")
-    if device_type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device type {device_type!r}")
-    return "ref" if impl == "ref" or device_type == "cpu" else "cuda"
 
 
 def fir_taps_ref(p: torch.Tensor, taps_w: np.ndarray, taps_h: np.ndarray) -> torch.Tensor:
@@ -79,13 +70,13 @@ def fir_banded_ref(p: torch.Tensor, mw: torch.Tensor, mh: torch.Tensor) -> torch
 
 def fir_taps(p: torch.Tensor, taps_w: np.ndarray, taps_h: np.ndarray,
              impl: str = "auto") -> torch.Tensor:
-    if choose_fir_impl(p.device.type, impl) == "ref":
+    if kernel_or_plain(p.device.type, impl) == "ref":
         return fir_taps_ref(p, taps_w, taps_h)
     return fir_cuda.fir_taps_cuda(p, taps_w, taps_h)
 
 
 def fir_banded(p: torch.Tensor, mw: torch.Tensor, mh: torch.Tensor,
                impl: str = "auto") -> torch.Tensor:
-    if choose_fir_impl(p.device.type, impl) == "ref":
+    if kernel_or_plain(p.device.type, impl) == "ref":
         return fir_banded_ref(p, mw, mh)
     return fir_cuda.fir_banded_cuda(p, mw, mh)

@@ -44,7 +44,7 @@ constexpr int kR = 16;   // outputs per thread along a chain
 constexpr int kMaxTaps = 64;
 
 struct Geometry {
-    int qh, qw, c;       // input plane [qh, qw, c]
+    int qw, c;           // input plane [qh, qw, c]
     int out_h, out_w;    // output [out_h, out_w, c]
     int tiles_w;
 };
@@ -156,7 +156,7 @@ int sg3_fir_taps(const void* p, const float* taps_w, const float* taps_h, void* 
         (dtype != 0 && dtype != 1)) {
         return int(cudaErrorInvalidValue);
     }
-    Geometry g{qh, qw, c, qh - th + 1, qw - tw + 1, 0};
+    Geometry g{qw, c, qh - th + 1, qw - tw + 1, 0};
     g.tiles_w = (g.out_w + kTj - 1) / kTj;
     Taps taps{};
     for (int k = 0; k < tw; ++k) taps.w[k] = taps_w[k];

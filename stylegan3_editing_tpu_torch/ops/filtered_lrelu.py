@@ -20,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from ..device import kernel_or_plain
 from . import flrelu_cuda
 from .bias_act import bias_act
 from .upfirdn2d import Filter, filter_size, parse_padding, upfirdn2d
@@ -34,11 +35,7 @@ def choose_impl(device_type: str, fu: Filter, fd: Filter, up: int, down: int,
     inside the kernel's envelope take the kernel; outside it (ToRGB: up =
     down = 1, no filters) the composition, as in the JAX package.
     """
-    if impl not in ("auto", "ref"):
-        raise ValueError(f"impl must be 'auto' or 'ref', got {impl!r}")
-    if device_type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device type {device_type!r}")
-    if impl == "ref" or device_type == "cpu":
+    if kernel_or_plain(device_type, impl) == "ref":
         return "ref"
     return "cuda" if flrelu_cuda.in_envelope(fu, fd, up, down, flip_filter) else "ref"
 

@@ -28,7 +28,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .cuda_build import NVCC_FLAGS, build, build_log, launches, reset_launches  # noqa: F401
+from .cuda_build import build, build_log, launches, reset_launches  # noqa: F401
 
 
 def output_size(length: int, up: int, pad0: int, pad1: int, tu: int, td: int) -> int:

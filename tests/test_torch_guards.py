@@ -13,9 +13,9 @@ import torch
 from stylegan3_editing_tpu_torch.models.sg3 import Generator, sg3_r_config
 from stylegan3_editing_tpu_torch.models.sg3.config import build_synthesis_layout
 from stylegan3_editing_tpu_torch.ops import cuda_build, fir_cuda, flrelu_cuda
-from stylegan3_editing_tpu_torch.ops.banded_fir import (banded, choose_fir_impl, fir_banded,
-                                                        fir_banded_ref, fir_taps, fir_taps_ref,
-                                                        hann_taps)
+from stylegan3_editing_tpu_torch.device import kernel_or_plain
+from stylegan3_editing_tpu_torch.ops.banded_fir import (banded, fir_banded, fir_banded_ref,
+                                                        fir_taps, fir_taps_ref, hann_taps)
 from stylegan3_editing_tpu_torch.ops.filtered_lrelu import choose_impl
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -135,14 +135,14 @@ def test_fir_kernel_wrappers_refuse_cpu_tensors():
     ("cuda", "auto", "cuda"), ("cpu", "auto", "ref"), ("cuda", "ref", "ref"),
     ("cpu", "ref", "ref")])
 def test_fir_dispatch_by_device_type(device_type, impl, expected):
-    assert choose_fir_impl(device_type, impl) == expected
+    assert kernel_or_plain(device_type, impl) == expected
 
 
 def test_fir_dispatch_rejects_other_devices_and_impls():
     with pytest.raises(ValueError):
-        choose_fir_impl("mps")
+        kernel_or_plain("mps")
     with pytest.raises(ValueError):
-        choose_fir_impl("cuda", impl="xla")
+        kernel_or_plain("cuda", impl="xla")
 
 
 def test_fir_dispatch_sends_cpu_tensors_to_the_plain_versions():
