@@ -18,7 +18,8 @@
 //   the W chain of the tile's kTi + Th - 1 input rows goes to shared memory
 //   and the H chain reads it from there, so only the tile's halo is read
 //   twice (from L2) and p and o cross device memory once. Two blocks fit an
-//   SM (88 KB each at 12 taps);
+//   SM (88 KB each at 12 taps; the launch bounds cap registers at 64 so
+//   that they do);
 // - both chains are register-blocked: a thread slides a window of kR = 16
 //   samples along its run (a whole tile row of the W chain) and feeds kR
 //   outputs from each sample it loads, so a tap costs kR FMAs, one load and
@@ -83,7 +84,7 @@ __device__ __forceinline__ void chain(const float* f, int nt, const T* src, size
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 fir_taps_kernel(const T* __restrict__ p, float* __restrict__ out,
                 const __grid_constant__ Geometry g, const __grid_constant__ Taps taps) {
     extern __shared__ float t_s[];  // W chain of the tile: [rows][kTj][kCb]
