@@ -23,12 +23,95 @@ input outside the envelope, raises.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .cuda_build import build, build_log, launches, reset_launches  # noqa: F401
+
+# The forward's down pass on bf16 layers with a 12×12 fd runs on the tensor
+# cores as out[m, c] = Σ_k W[m, k] · A[window(k), c]: m is one of the 16
+# outputs of a 4×4 M-tile (the MMA's M), c one of a block's 8 channels (its
+# N), k one of K = 21 steps × 16 points of the M-tile's 18×18 window on the
+# activated up grid A. W is the same for every M-tile, so it is built once
+# per filter (`mma_down_operand`) and split into bf16 hi + lo.
+MMA_TILE = 4                         # M-tile side
+MMA_WINDOW = 2 * (MMA_TILE - 1) + 12  # its window's side on the up grid: 18
+MMA_K = 16 * 21                      # W's columns: 21 k16 steps
+
+
+def mma_down(dtype: torch.dtype, fd: np.ndarray) -> bool:
+    """Whether the forward kernel's down pass runs on the tensor cores (bf16
+    input, 12×12 fd) or on the CUDA cores (fp32, or a separable fd)."""
+    return dtype == torch.bfloat16 and fd.ndim == 2
+
+
+def mma_down_window_offsets() -> Tuple[np.ndarray, np.ndarray]:
+    """``(ij, real)``: the window position (row, column) of each of W's K
+    columns in the kernel's order, and whether it is a point of the window.
+
+    Steps 0–17 take window row s, columns 0–15. Steps 18–20 take columns 16
+    and 17 of rows 8t … 8t + 7 as (row, column) pairs, k = 2·(row − 8t) +
+    column − 16; rows past 17 are padding, clamped to row 17 (W is zero
+    there, the data only has to be finite).
+    """
+    k = np.arange(MMA_K)
+    step, kk = k // 16, k % 16
+    first = step < MMA_WINDOW
+    row = np.where(first, step, 8 * (step - MMA_WINDOW) + kk // 2)
+    col = np.where(first, kk, 16 + kk % 2)
+    real = row < MMA_WINDOW
+    return np.stack([np.minimum(row, MMA_WINDOW - 1), col], axis=1), real
+
+
+def mma_down_operand(fd: np.ndarray) -> np.ndarray:
+    """W ``[16, MMA_K]`` (float64 holding float32 taps) for a 12×12 fd:
+    ``W[m, k] = fd_c[i_k − 2·dy, j_k − 2·dx]`` for output m = 4·dy + dx of the
+    M-tile and window point (i_k, j_k), zero outside the taps. ``fd_c`` is the
+    kernel's correlation-order fd in float32, untruncated."""
+    fd_c = np.asarray(fd, np.float32)[::-1, ::-1].astype(np.float64)
+    td = fd_c.shape[0]
+    assert fd_c.shape == (td, td) and 2 * (MMA_TILE - 1) + td == MMA_WINDOW, fd_c.shape
+    ij, real = mma_down_window_offsets()
+    dy, dx = np.divmod(np.arange(MMA_TILE * MMA_TILE), MMA_TILE)
+    ky = ij[None, :, 0] - 2 * dy[:, None]
+    kx = ij[None, :, 1] - 2 * dx[:, None]
+    inside = real[None] & (ky >= 0) & (ky < td) & (kx >= 0) & (kx < td)
+    return np.where(inside, fd_c[ky.clip(0, td - 1), kx.clip(0, td - 1)], 0.0)
+
+
+def bf16_value(bits: np.ndarray) -> np.ndarray:
+    """float32 values of bf16 bit patterns (uint16)."""
+    return (np.asarray(bits, np.uint16).astype(np.uint32) << 16).view(np.float32)
+
+
+def bf16_split(w: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """bf16 bit patterns (uint16) of ``hi = rn(w)`` and ``lo = rn(w − hi)`` for
+    finite float32 ``w``, rounding to nearest even: hi + lo keeps ~2⁻¹⁷ of
+    |w|, where hi alone keeps 2⁻⁹."""
+    def rn(v):
+        bits = np.ascontiguousarray(v, np.float32).view(np.uint32).astype(np.uint64)
+        return ((bits + 0x7FFF + ((bits >> 16) & 1)) >> 16).astype(np.uint16)
+
+    w = np.asarray(w, np.float32)
+    assert np.isfinite(w).all()
+    hi = rn(w)
+    return hi, rn(w - bf16_value(hi))
+
+
+_mma_operands: Dict[Tuple[bytes, str], torch.Tensor] = {}
+
+
+def mma_down_operand_on(fd: np.ndarray, device: torch.device) -> torch.Tensor:
+    """W of `mma_down_operand` as bf16 ``[2 (hi, lo), 16, MMA_K]`` on
+    ``device``, built once per (fd, device)."""
+    key = (np.asarray(fd, np.float32).tobytes(), str(device))
+    if key not in _mma_operands:
+        hi, lo = bf16_split(mma_down_operand(fd))
+        bits = torch.from_numpy(np.stack([hi, lo]).view(np.int16))
+        _mma_operands[key] = bits.to(device).view(torch.bfloat16)
+    return _mma_operands[key]
 
 
 def output_size(length: int, up: int, pad0: int, pad1: int, tu: int, td: int) -> int:
