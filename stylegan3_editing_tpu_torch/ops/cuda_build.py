@@ -4,8 +4,9 @@ One registry, `KERNELS`, names each kernel's source in ``csrc/`` and the C
 functions its shared library exports, with their ctypes signatures. `build()`
 compiles every source with ``nvcc`` for ``sm_90a`` at first use, one ``nvcc``
 per source, all started together, into ``_build/`` beside the package
-(listed in ``.gitignore``). Each library is keyed by the hash of its source
-and the flags, written to a temporary file and moved into place atomically,
+(listed in ``.gitignore``). Each library is keyed by the hash of its source,
+the local headers it includes (``#include "..."``, such as ``mma.cuh``) and
+the flags, written to a temporary file and moved into place atomically,
 then loaded with ``ctypes``. ptxas' report (registers, spills) is kept in
 `build_log`. The wrappers (`flrelu_cuda`, `fir_cuda`) count their launches in
 `launches`. There is no fallback: a failed build raises.
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -69,11 +71,28 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.MULTILINE)
+
+
+def source_files(source: Path) -> List[Path]:
+    """A kernel's source and the local headers it includes, transitively."""
+    files = [source]
+    for path in files:  # grows while it is walked
+        for name in _LOCAL_INCLUDE.findall(path.read_bytes()):
+            header = path.parent / name.decode()
+            if header not in files:
+                files.append(header)
+    return files
+
+
 def library_path(name: str) -> Path:
-    """Where the shared library of kernel ``name`` is (or will be) built."""
-    tag = hashlib.sha256(KERNELS[name].source.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return _BUILD_DIR / f"lib{name}_{tag}.so"
+    """Where the shared library of kernel ``name`` is (or will be) built:
+    keyed by its source, its local headers and the flags."""
+    digest = hashlib.sha256()
+    for path in source_files(KERNELS[name].source):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return _BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
 
 
 def build() -> Dict[str, ctypes.CDLL]:

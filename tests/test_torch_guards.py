@@ -159,3 +159,19 @@ def test_fir_dispatch_sends_cpu_tensors_to_the_plain_versions():
     assert set(cuda_build.launches) == {"filtered_lrelu_fwd", "filtered_lrelu_bwd", "fir_taps",
                                         "fir_banded"}
     assert flrelu_cuda.launches is cuda_build.launches and fir_cuda.launches is cuda_build.launches
+
+
+def test_library_key_covers_included_headers(tmp_path, monkeypatch):
+    """An edit to a local header a kernel includes changes its library's
+    key, so no stale library is loaded; system headers are not followed."""
+    (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n#include "a.cuh"\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n  #include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// v1\n")
+    monkeypatch.setitem(cuda_build.KERNELS, "probe", cuda_build.Kernel(tmp_path / "k.cu", {}))
+    assert [p.name for p in cuda_build.source_files(tmp_path / "k.cu")] == \
+        ["k.cu", "a.cuh", "b.cuh"]
+    before = cuda_build.library_path("probe")
+    (tmp_path / "b.cuh").write_text("// v2\n")
+    assert cuda_build.library_path("probe") != before
+    assert [p.name for p in cuda_build.source_files(cuda_build.KERNELS["fir_banded"].source)] \
+        == ["fir_banded.cu", "mma.cuh"]
