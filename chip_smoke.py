@@ -8,8 +8,9 @@ Phases (any failure exits non-zero before the result lines):
 2. build: compiles all four kernels (filtered-lrelu forward and backward,
    the probe's tap chains and banded products) from the repository's
    sources, in parallel, and prints ptxas' registers, each kernel's shared
-   memory per block and the tensor-core instructions in the banded kernel's
-   SASS;
+   memory per block and the tensor-core instructions in the SASS of the
+   forward kernel (its down pass on bf16 radial layers) and of the banded
+   kernel;
 3. per layer: the kernel against the plain PyTorch version on each of the
    14 filtered-lrelu layers of SG3-R 1024 at full size, batch 1, in the
    layer's dtype (bf16 layers against the plain version in fp32 on the
@@ -18,8 +19,11 @@ Phases (any failure exits non-zero before the result lines):
    truncation 0.7, batch 8: shape, finiteness, 14 kernel launches per
    forward, and at batch 1 an fp32 forward through the kernels against the
    same forward with ``impl="ref"``;
-5. timing with CUDA events after warm-up: images/s at batch 8, each layer's
-   kernel, plain and bound times at batch 8, and peak memory;
+5. timing with CUDA events after warm-up: images/s at batch 8, and peak
+   memory; each layer's kernel, plain and bound times at batch 8, with the
+   route of its down pass (tensor cores on bf16 radial layers, L5-L11, CUDA
+   cores elsewhere) and two bounds: every FLOP at the fp32 rate, and the
+   tensor-core route's useful down-pass FLOPs at the bf16 tensor-core rate;
 6. backward per layer: the backward kernel against `filtered_lrelu_bwd_ref`
    on each of the 14 layers at full size, batch 1, in the layer's dtype with
    a seeded dy (dx, and db = Σ dx); and the plain backward against
@@ -49,10 +53,8 @@ Times carry the card's name and power limit.
 
 from __future__ import annotations
 
-import collections
 import json
 import math
-import shutil
 import subprocess
 import sys
 import time
@@ -63,6 +65,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
+TC_FLOPS = 989e12          # H100 SXM dense bf16 on the tensor cores
 FP32_TOL = (1e-4, 1e-4)    # (atol, rtol): sum order of fp32 taps and cuDNN
 BF16_TOL = (1e-3, 2 ** -8)  # one bf16 rounding of the kernel's fp32 result
 IMAGE_TOL = 1e-3           # fp32 image, kernel vs plain: sum order over 15 layers
@@ -90,11 +93,12 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
 
 def flrelu_work(x_shape, out_shape, up: int, tu: int, td: int, radial: bool,
                 esize: int):
-    """(bytes, flops) the fused op needs: the input read and the output
-    written once; the up pass's tu/up non-zero taps per up-grid point per
-    axis, lrelu·gain·clamp (3 per up-grid point), and the down pass's td²
-    (2-D fd) or 2·td (separable, two passes) taps per output, 2 FLOPs a tap,
-    over the up grid the output needs."""
+    """(bytes, up_flops, down_flops) the fused op needs: the input read and
+    the output written once; the up pass's tu/up non-zero taps per up-grid
+    point per axis and lrelu·gain·clamp (3 per up-grid point), then the down
+    pass's td² (2-D fd) or 2·td (separable, two passes) taps per output, 2
+    FLOPs a tap, over the up grid the output needs. The down pass counts its
+    useful taps only, not the zeros of the tensor-core route's padded W."""
     n, h, _, c = x_shape
     _, oh, ow, _ = out_shape
     span_h, span_w = 2 * oh + td - 2, 2 * ow + td - 2
@@ -102,7 +106,7 @@ def flrelu_work(x_shape, out_shape, up: int, tu: int, td: int, radial: bool,
     up_flops = 2 * taps_u * (h * span_w + span_h * span_w) + 3 * span_h * span_w
     down_flops = 2 * (td * td * oh * ow if radial else td * span_h * ow + td * oh * ow)
     nbytes = esize * (math.prod(x_shape) + math.prod(out_shape))
-    return nbytes, n * c * (up_flops + down_flops)
+    return nbytes, n * c * up_flops, n * c * down_flops
 
 
 def flrelu_bwd_work(x_shape, dy_shape, up: int, tu: int, td: int, radial: bool,
@@ -135,18 +139,6 @@ def fir_work(shape, taps: int, esize: int, matrices: bool):
     shaping = esize * (j * qw + i * qh) if matrices else 4 * 2 * taps
     nbytes = esize * qh * qw * c + 4 * i * j * c + shaping
     return nbytes, 2 * taps * (qh * j + i * j) * c
-
-
-def sass_mma_counts(lib_path):
-    """Tensor-core (HMMA) instructions in a library's SASS by opcode, or None
-    without cuobjdump."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not Path(tool).exists():
-        return None
-    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
-                          timeout=120, check=True).stdout
-    return collections.Counter(word for line in sass.splitlines() for word in line.split()
-                               if word.startswith("HMMA."))
 
 
 def main() -> int:
@@ -200,11 +192,12 @@ def main() -> int:
           f"[{qh}, {qw}] -> {list(fir_out)}: "
           f"{libs['fir_banded'].sg3_fir_banded_smem_bytes(qh, qw, *fir_out[::-1], 0)} B (fp32), "
           f"{libs['fir_banded'].sg3_fir_banded_smem_bytes(qh, qw, *fir_out[::-1], 1)} B (bf16)")
-    hmma = sass_mma_counts(cuda_build.library_path("fir_banded"))
-    print(f"  sass fir_banded: tensor-core instructions {dict(hmma)} (mma.sync)"
-          if hmma is not None else "  sass fir_banded: cuobjdump not found, HMMA not counted")
-    if hmma is not None and not hmma:
-        raise SystemExit("the banded kernel issues no tensor-core instruction")
+    for name in ("filtered_lrelu_fwd", "fir_banded"):
+        hmma = cuda_build.sass_mma_counts(name)
+        print(f"  sass {name}: tensor-core instructions {dict(hmma)} (mma.sync)"
+              if hmma is not None else f"  sass {name}: cuobjdump not found, HMMA not counted")
+        if hmma is not None and not any(op.endswith(".BF16") for op in hmma):
+            raise SystemExit(f"{name} issues no bf16 tensor-core instruction")
 
     cfg = sg3_r_config(1024)
     layers = [s for s in build_synthesis_layout(cfg).layers if s.up_filter is not None]
@@ -288,7 +281,8 @@ def main() -> int:
         # image per call: at batch 8 its x`up` intermediate passes 2^31
         # elements on the top layers. Images 0 and 7 of the kernel's batch-8
         # output are held against it as in phase 3.
-        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
+        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, fp32_bound_ms=0.0, bytes_ms=0.0,
+                   ops_ms=0.0)
         for i, s in enumerate(layers):
             x, b = layer_inputs(s, 8, seed=100 + i)
             out = kernel_call(s, x, b)
@@ -301,10 +295,15 @@ def main() -> int:
                     raise SystemExit(f"kernel disagrees with the plain version on "
                                      f"{s.name}, batch 8, image {n}")
                 del ref, err
-            nbytes, flops = flrelu_work(
+            nbytes, up_flops, down_flops = flrelu_work(
                 tuple(x.shape), tuple(out.shape), s.up_factor, len(s.up_filter),
                 s.down_filter.shape[0], s.down_filter.ndim == 2, x.element_size())
-            bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+            tensor_cores = flrelu_cuda.mma_down(x.dtype, s.down_filter)
+            flops = up_flops + down_flops
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            fp32_ops_ms = flops / FP32_FLOPS * 1e3
+            ops_ms = (up_flops / FP32_FLOPS + down_flops / TC_FLOPS) * 1e3 if tensor_cores \
+                else fp32_ops_ms
             k_ms = time_ms(lambda: kernel_call(s, x, b), 10)
 
             def plain_batch():
@@ -312,18 +311,22 @@ def main() -> int:
                     layer_call(s, x[n:n + 1], b, impl="ref")
 
             p_ms = time_ms(plain_batch, 3, warmup=1)
-            bound = max(bytes_ms, ops_ms)
+            bound, fp32_bound = max(bytes_ms, ops_ms), max(bytes_ms, fp32_ops_ms)
             for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", bound),
-                           ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
+                           ("fp32_bound_ms", fp32_bound), ("bytes_ms", bytes_ms),
+                           ("ops_ms", ops_ms)):
                 tot[key] += v
-            print(f"time {s.name} {str(x.dtype)[6:]} batch 8: kernel {k_ms:.4f} ms, "
+            print(f"time {s.name} {str(x.dtype)[6:]} batch 8, down pass on the "
+                  f"{'tensor cores' if tensor_cores else 'CUDA cores'}: kernel {k_ms:.4f} ms, "
                   f"plain {p_ms:.4f} ms, bound {bound:.4f} ms "
                   f"({'operations' if ops_ms > bytes_ms else 'bytes'}: "
-                  f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) {card}")
+                  f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP of which down pass "
+                  f"{down_flops / 1e9:.2f}), all-fp32 bound {fp32_bound:.4f} ms {card}")
             del x, b, out
             torch.cuda.empty_cache()
         print(f"time all 14 layers batch 8: kernel {tot['ms']:.4f} ms, plain "
-              f"{tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms {card}")
+              f"{tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms, all-fp32 bound "
+              f"{tot['fp32_bound_ms']:.4f} ms {card}")
 
     # 6. Backward per layer: kernel vs plain at full size, batch 1.
     def bwd_kernel_call(s, dy, x, b):

@@ -12,8 +12,8 @@
 // input) through device memory several times; this kernel reads the input and
 // writes the output once, so its byte floor is bytes(in + out) / 3.35 TB/s.
 // Its operations are ~6 FMA per up-grid point per axis plus 144 (radial fd)
-// or 24 (separable fd) FMA per output, in fp32 on the CUDA cores; on SG3-R
-// they are the larger term. What the design does about it:
+// or 24 (separable fd) FMA per output, in fp32; on SG3-R they are the larger
+// term. What the design does about it:
 // - the geometry (taps, tile, channel group) is compile-time, so every tap
 //   loop unrolls and the index arithmetic folds;
 // - the taps ride in the kernel's parameter space (__grid_constant__), so a
@@ -23,8 +23,17 @@
 //   computes 8 up-grid samples from it;
 // - the down pass is register-blocked the same way: a thread keeps a run of
 //   2*8+td-2 up-grid values in registers and feeds 8 outputs from it;
-// - the row pitches are padded so a warp's 32 lanes hit 32 banks.
-// Tensor cores, TMA and pipelining are left for later work.
+// - the row pitches are padded so a warp's 32 lanes hit 32 banks;
+// - on bf16 inputs with a radial fd (SG3-R's L5-L11) the down pass, 144 of
+//   the ~200 FMA per output, runs on the tensor cores (`mma_down`): per 4x4
+//   M-tile of outputs, D[16 outputs][8 channels] = W[16][336] . B[336][8],
+//   with B the 18x18 window of the up grid under the M-tile and W the fd
+//   taps placed at each output's offset in it (the same for every M-tile,
+//   built on the host: flrelu_cuda.mma_down_operand). W and the up grid are
+//   each split into bf16 hi + lo, and hi.hi + hi.lo + lo.hi (m16n8k16
+//   mma.sync, fp32 sums) keep ~2^-16 of the fp32 result. The up passes stay
+//   on the CUDA cores.
+// TMA and pipelining are left for later work.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC -o libflrelu.so filtered_lrelu_fwd.cu
@@ -32,6 +41,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "mma.cuh"  // mma_bf16, split_bf16, ldmatrix_x4(_trans), cp_async_16
 
 namespace {
 
@@ -41,6 +54,24 @@ constexpr int kCg = 8;     // channels per block, the fastest index in shared me
 constexpr int kR = 8;      // outputs per thread along the blocked axis of the down pass
 constexpr int kUpOut = 8;  // up-grid outputs per thread in each up pass
 constexpr int kMaxTu = 24, kMaxTd = 12;
+// The tensor-core down pass: M-tiles of kMmaTile^2 = 16 outputs (the MMA's
+// M) over the block's 8 channels (its N); 8 warps take two M-tiles each of
+// the 16 in a tile. K runs over the M-tile's kMmaWin^2 window of the up grid
+// in kKSteps steps of 16: steps 0-17 are window row s, columns 0-15; steps
+// 18-20 columns 16-17 of rows 8t .. 8t + 7 as (row, column) pairs, rows
+// past 17 padding (W is zero there; the kernel reads row 17 for them).
+// flrelu_cuda.mma_down_window_offsets holds the same order.
+constexpr int kMmaTile = 4;
+constexpr int kMmaWin = 2 * (kMmaTile - 1) + kMaxTd;  // 18
+constexpr int kKSteps = 21;
+constexpr int kWCols = 16 * kKSteps;  // W's columns in device memory (336)
+// W's row pitch in shared memory (bf16): rows 688 B apart put an ldmatrix
+// tile's 8 rows on 8 distinct 16-byte groups of banks.
+constexpr int kWPitch = kWCols + 8;
+static_assert(kMmaWin == 18 && kMmaWin * kMmaWin <= kWCols &&
+              16 * (kKSteps - kMmaWin) >= 2 * kMmaWin, "K steps cover the window");
+static_assert(kTile == 4 * kMmaTile && kThreads / 32 * 2 == kMmaTile * kMmaTile,
+              "8 warps take two M-tiles each");
 
 struct Geometry {
     int n, h, w, c;     // input (NHWC)
@@ -80,6 +111,13 @@ struct Shape {
     static constexpr int kBuf1 = kIn * kT1Pitch > kSpan * kDPitch ? kIn * kT1Pitch
                                                                    : kSpan * kDPitch;
     static constexpr size_t kSmemBytes = sizeof(float) * size_t(kBuf0 + kBuf1);
+    // The tensor-core down pass keeps the up grid in buf0 as two bf16 planes
+    // (hi, lo) of [kSpan][kSpan][kCg]: a pixel's 8 channels are one 16-byte
+    // row of an ldmatrix tile, and a row of 42 pixels (672 B = 32 mod 128)
+    // puts 4 consecutive rows on distinct banks. W (hi, lo) goes to buf1.
+    static constexpr int kPlane = kSpan * kSpan * kCg;  // bf16 elements
+    static_assert(2 * kPlane * 2 <= 4 * kBuf0 && 2 * 16 * kWPitch * 2 <= 4 * kBuf1,
+                  "the tensor-core down pass fits the buffers");
     static_assert(U == 2 || U == 4, "up factor 2 or 4");
     static_assert(TU % U == 0 && TU <= kMaxTu && TD <= kMaxTd, "tap counts");
     static_assert(kTile % kR == 0 && kUpOut % U == 0, "register blocking");
@@ -128,15 +166,75 @@ __device__ __forceinline__ void down_run(const float* f, const float* src, int s
     }
 }
 
+// The down pass of a tile on the tensor cores: up = the hi and lo planes of
+// the activated up grid, w_s = W's hi and lo ([2][16][kWPitch] bf16). Warp w
+// takes M-tiles (w / 2, 2 (w % 2) + t), t = 0, 1; at each K step it loads
+// W's fragments once for both, and per M-tile one ldmatrix.x4.trans brings
+// the B fragments of hi and lo. The three products of a step accumulate in
+// separate chains; store(oy, ox, c, v0, v1) writes channels c and c + 1.
+template <int SPAN, typename Store>
+__device__ __forceinline__ void mma_down(const __nv_bfloat16* up, const __nv_bfloat16* w_s,
+                                         Store store) {
+    constexpr int kPlane = SPAN * SPAN * kCg;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int q = lane >> 3, r = lane & 7;  // this lane's ldmatrix tile and row
+    // A (W, row-major): tiles (m 0-7 | 8-15) x (k 0-7 | 8-15).
+    const __nv_bfloat16* a_row = w_s + (r + 8 * (q & 1)) * kWPitch + 8 * (q >> 1);
+    // B (the up grid, pixel-major, so .trans): tiles (k 0-7 | 8-15) of hi, then lo.
+    const int kb = r + 8 * (q & 1);
+    const __nv_bfloat16* b_plane = up + (q >> 1) * kPlane;
+    const int my = kMmaTile * (warp >> 1);
+    float acc[2][3][4] = {};
+#pragma unroll
+    for (int s = 0; s < kKSteps; ++s) {
+        uint32_t ah[4], al[4];
+        ldmatrix_x4(ah, a_row + 16 * s);
+        ldmatrix_x4(al, a_row + 16 * kWPitch + 16 * s);
+        const int wi = s < kMmaWin ? s : min(8 * (s - kMmaWin) + (kb >> 1), kMmaWin - 1);
+        const int wj = s < kMmaWin ? kb : 16 + (kb & 1);
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+            const int mx = kMmaTile * (2 * (warp & 1) + t);
+            uint32_t b[4];
+            ldmatrix_x4_trans(b, b_plane + ((2 * my + wi) * SPAN + 2 * mx + wj) * kCg);
+            const uint32_t b_hi[2] = {b[0], b[1]}, b_lo[2] = {b[2], b[3]};
+            mma_bf16(acc[t][0], ah, b_hi);
+            mma_bf16(acc[t][1], ah, b_lo);
+            mma_bf16(acc[t][2], al, b_hi);
+        }
+    }
+    // D rows m = gid, gid + 8 are outputs (m / 4, m % 4) of the M-tile;
+    // columns 2 tig, 2 tig + 1 its channels.
+    const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+        const int mx = kMmaTile * (2 * (warp & 1) + t);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            float v[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int i = 2 * h + e;
+                v[e] = (acc[t][1][i] + acc[t][2][i]) + acc[t][0][i];
+            }
+            const int m = gid + 8 * h;
+            store(my + m / kMmaTile, mx + m % kMmaTile, 2 * tig, v[0], v[1]);
+        }
+    }
+}
+
 template <typename T, int U, int TU, int TD, bool RADIAL>
 __global__ void __launch_bounds__(kThreads)
 flrelu_fwd_kernel(const T* __restrict__ x, const float* __restrict__ bias,
-                  T* __restrict__ out, const __grid_constant__ Geometry g,
-                  const __grid_constant__ Taps taps) {
+                  const __nv_bfloat16* __restrict__ wmma, T* __restrict__ out,
+                  const __grid_constant__ Geometry g, const __grid_constant__ Taps taps) {
     using S = Shape<U, TU, TD>;
-    extern __shared__ float smem[];
+    // bf16 with a radial fd: the down pass runs on the tensor cores.
+    constexpr bool kMma = RADIAL && std::is_same<T, __nv_bfloat16>::value;
+    extern __shared__ __align__(16) float smem[];
     float* buf0 = smem;             // input tile, then the activated up grid
-    float* buf1 = smem + S::kBuf0;  // W-upsampled rows, then W-downsampled rows
+    float* buf1 = smem + S::kBuf0;  // W-upsampled rows, then W-downsampled rows (or W)
+    __nv_bfloat16* up = reinterpret_cast<__nv_bfloat16*>(buf0);  // kMma: hi, lo planes
 
     const int tid = threadIdx.x;
     const int tile_y = blockIdx.x / g.tiles_w;
@@ -181,8 +279,8 @@ flrelu_fwd_kernel(const T* __restrict__ x, const float* __restrict__ bias,
     }
     __syncthreads();
 
-    // 3. Up-FIR along H, then lrelu * gain and clamp: buf0[i][j][c]. Lanes
-    //    run over (c, j).
+    // 3. Up-FIR along H, then lrelu * gain and clamp: buf0[i][j][c] (kMma:
+    //    bf16 hi and lo planes [i][j][c]). Lanes run over (c, j).
     for (int idx = tid; idx < S::kSpan * S::kGroups * kCg; idx += kThreads) {
         const int c = idx % kCg, j = (idx / kCg) % S::kSpan, grp = idx / (kCg * S::kSpan);
         float acc[kUpOut];
@@ -194,7 +292,13 @@ flrelu_fwd_kernel(const T* __restrict__ x, const float* __restrict__ bias,
             float v = acc[m] >= 0.f ? acc[m] : acc[m] * g.slope;
             v *= g.gain;
             v = v < -g.clamp ? -g.clamp : (v > g.clamp ? g.clamp : v);
-            if (i >= 0 && i < S::kSpan) buf0[i * S::kAPitch + j * kCg + c] = v;
+            if (i < 0 || i >= S::kSpan) continue;
+            if constexpr (kMma) {
+                split_bf16(v, up[(i * S::kSpan + j) * kCg + c],
+                           up[S::kPlane + (i * S::kSpan + j) * kCg + c]);
+            } else {
+                buf0[i * S::kAPitch + j * kCg + c] = v;
+            }
         }
     }
     __syncthreads();
@@ -205,7 +309,30 @@ flrelu_fwd_kernel(const T* __restrict__ x, const float* __restrict__ bias,
         if (gy < g.out_h && gx < g.out_w && ch < g.c)
             store_f32(out + ((size_t(n) * g.out_h + gy) * g.out_w + gx) * g.c + ch, v);
     };
-    if constexpr (RADIAL) {
+    if constexpr (kMma) {
+        // W's hi and lo into buf1 (rows of kWCols to rows of kWPitch); the
+        // 21.5 KB stay in L2 between blocks.
+        __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(buf1);
+        constexpr int kChunks = kWCols / 8;  // 16-byte chunks of a row
+        for (int idx = tid; idx < 2 * 16 * kChunks; idx += kThreads) {
+            const int row = idx / kChunks, chunk = idx - row * kChunks;
+            cp_async_16(w_s + row * kWPitch + 8 * chunk, wmma + row * kWCols + 8 * chunk);
+        }
+        cp_async_wait_all();
+        __syncthreads();
+        const bool even_c = (g.c & 1) == 0;
+        mma_down<S::kSpan>(up, w_s, [&](int oy, int ox, int c, float v0, float v1) {
+            const int gy = oy0 + oy, gx = ox0 + ox, ch = c0 + c;
+            if (gy >= g.out_h || gx >= g.out_w || ch >= g.c) return;
+            T* p = out + ((size_t(n) * g.out_h + gy) * g.out_w + gx) * g.c + ch;
+            if (even_c) {  // ch + 1 < c, and p is 4-byte aligned
+                *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+            } else {
+                p[0] = __float2bfloat16_rn(v0);
+                if (ch + 1 < g.c) p[1] = __float2bfloat16_rn(v1);
+            }
+        });
+    } else if constexpr (RADIAL) {
         // Lanes run over (c, oy); each thread computes ox .. ox + kR - 1.
         for (int idx = tid; idx < kTile * (kTile / kR) * kCg; idx += kThreads) {
             const int c = idx % kCg, oy = (idx / kCg) % kTile, ox = idx / (kCg * kTile) * kR;
@@ -241,7 +368,7 @@ flrelu_fwd_kernel(const T* __restrict__ x, const float* __restrict__ bias,
 }
 
 template <typename T, int U, int TU, int TD, bool RADIAL>
-int launch(const void* x, const void* bias, void* out, const Geometry& g,
+int launch(const void* x, const void* bias, const void* wmma, void* out, const Geometry& g,
            const Taps& taps, cudaStream_t stream) {
     using S = Shape<U, TU, TD>;
     auto kernel = flrelu_fwd_kernel<T, U, TU, TD, RADIAL>;
@@ -251,20 +378,20 @@ int launch(const void* x, const void* bias, void* out, const Geometry& g,
     const int tiles_h = (g.out_h + kTile - 1) / kTile;
     dim3 grid(unsigned(tiles_h * g.tiles_w), unsigned((g.c + kCg - 1) / kCg), unsigned(g.n));
     kernel<<<grid, kThreads, S::kSmemBytes, stream>>>(
-        static_cast<const T*>(x), static_cast<const float*>(bias), static_cast<T*>(out),
-        g, taps);
+        static_cast<const T*>(x), static_cast<const float*>(bias),
+        static_cast<const __nv_bfloat16*>(wmma), static_cast<T*>(out), g, taps);
     return int(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch(const void* x, const void* bias, void* out, const Geometry& g,
+int dispatch(const void* x, const void* bias, const void* w, void* out, const Geometry& g,
              const Taps& taps, int up, int radial, cudaStream_t s) {
     if (up == 2) {
-        return radial ? launch<T, 2, 12, 12, true>(x, bias, out, g, taps, s)
-                      : launch<T, 2, 12, 12, false>(x, bias, out, g, taps, s);
+        return radial ? launch<T, 2, 12, 12, true>(x, bias, w, out, g, taps, s)
+                      : launch<T, 2, 12, 12, false>(x, bias, w, out, g, taps, s);
     }
-    return radial ? launch<T, 4, 24, 12, true>(x, bias, out, g, taps, s)
-                  : launch<T, 4, 24, 12, false>(x, bias, out, g, taps, s);
+    return radial ? launch<T, 4, 24, 12, true>(x, bias, w, out, g, taps, s)
+                  : launch<T, 4, 24, 12, false>(x, bias, w, out, g, taps, s);
 }
 
 }  // namespace
@@ -279,15 +406,18 @@ size_t sg3_flrelu_fwd_smem_bytes(int up) {
 
 // x, out: NHWC device tensors, dtype 0 = float32, 1 = bfloat16. bias: float32
 // [c] on the device. fu, fd: host float32 correlation-order taps (fu with the
-// up gain folded in; fd 1-D, or 2-D row-major when radial). Supported: up 2
-// with 12 fu taps or up 4 with 24, and 12 fd taps per axis.
-// Returns the cudaError_t of the launch (0 on success).
+// up gain folded in; fd 1-D, or 2-D row-major when radial). wmma: for bf16
+// with a radial fd, the tensor-core down pass's operand W as bf16 [2 (hi,
+// lo)][16][336] on the device, 16-byte aligned (flrelu_cuda.mma_down_operand);
+// otherwise unused. Supported: up 2 with 12 fu taps or up 4 with 24, and 12
+// fd taps per axis. Returns the cudaError_t of the launch (0 on success).
 int sg3_flrelu_fwd(const void* x, const void* bias, const float* fu, const float* fd,
-                   void* out, int dtype, int n, int h, int w, int c, int out_h,
-                   int out_w, int up, int tu, int td, int radial, int py0, int px0,
-                   float gain, float slope, float clamp, void* stream) {
+                   const void* wmma, void* out, int dtype, int n, int h, int w, int c,
+                   int out_h, int out_w, int up, int tu, int td, int radial, int py0,
+                   int px0, float gain, float slope, float clamp, void* stream) {
     if (!((up == 2 && tu == 12) || (up == 4 && tu == 24)) || td != 12 ||
-        (dtype != 0 && dtype != 1)) {
+        (dtype != 0 && dtype != 1) ||
+        (dtype == 1 && radial && (wmma == nullptr || uintptr_t(wmma) % 16 != 0))) {
         return int(cudaErrorInvalidValue);
     }
     Geometry g{n, h, w, c, out_h, out_w, py0, px0, gain, slope, clamp,
@@ -296,8 +426,8 @@ int sg3_flrelu_fwd(const void* x, const void* bias, const float* fu, const float
     for (int i = 0; i < tu; ++i) taps.fu[i] = fu[i];
     for (int i = 0; i < (radial ? td * td : td); ++i) taps.fd[i] = fd[i];
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return dtype == 0 ? dispatch<float>(x, bias, out, g, taps, up, radial, s)
-                      : dispatch<__nv_bfloat16>(x, bias, out, g, taps, up, radial, s);
+    return dtype == 0 ? dispatch<float>(x, bias, wmma, out, g, taps, up, radial, s)
+                      : dispatch<__nv_bfloat16>(x, bias, wmma, out, g, taps, up, radial, s);
 }
 
 }  // extern "C"

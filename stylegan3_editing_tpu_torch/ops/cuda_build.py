@@ -8,12 +8,14 @@ per source, all started together, into ``_build/`` beside the package
 the local headers it includes (``#include "..."``, such as ``mma.cuh``) and
 the flags, written to a temporary file and moved into place atomically,
 then loaded with ``ctypes``. ptxas' report (registers, spills) is kept in
-`build_log`. The wrappers (`flrelu_cuda`, `fir_cuda`) count their launches in
+`build_log`; `sass_mma_counts` reads the tensor-core instructions of a built
+library. The wrappers (`flrelu_cuda`, `fir_cuda`) count their launches in
 `launches`. There is no fallback: a failed build raises.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -22,7 +24,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -40,7 +42,7 @@ class Kernel(NamedTuple):
 
 KERNELS: Dict[str, Kernel] = {
     "filtered_lrelu_fwd": Kernel(_CSRC / "filtered_lrelu_fwd.cu", {
-        "sg3_flrelu_fwd": (_I, [_P] * 5 + [_I] * 13 + [_F] * 3 + [_P]),
+        "sg3_flrelu_fwd": (_I, [_P] * 6 + [_I] * 13 + [_F] * 3 + [_P]),
         "sg3_flrelu_fwd_smem_bytes": (_SIZE, [_I])}),
     "filtered_lrelu_bwd": Kernel(_CSRC / "filtered_lrelu_bwd.cu", {
         "sg3_flrelu_bwd": (_I, [_P] * 6 + [_I] * 13 + [_F] * 3 + [_P]),
@@ -127,3 +129,15 @@ def build() -> Dict[str, ctypes.CDLL]:
             getattr(lib, fn).argtypes = argtypes
     _libs.update(libs)
     return _libs
+
+
+def sass_mma_counts(name: str) -> Optional[collections.Counter]:
+    """Tensor-core (HMMA) instructions in the SASS of kernel ``name``'s built
+    library, by opcode, or None where ``cuobjdump`` is not installed."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(library_path(name))], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    return collections.Counter(word for line in sass.splitlines() for word in line.split()
+                               if word.startswith("HMMA."))

@@ -150,7 +150,9 @@ def filtered_lrelu_cuda(
     """Launch the fused kernel on a CUDA NHWC tensor (fp32 or bf16).
 
     ``padding`` is ``(px0, px1, py0, py1)`` on the up grid (negative crops);
-    down is 2. Raises on any input the kernel does not take.
+    down is 2. On bf16 with a 12×12 fd the down pass runs on the tensor
+    cores, with W from `mma_down_operand_on`. Raises on any input the kernel
+    does not take.
     """
     if x.device.type != "cuda":
         raise ValueError(f"filtered_lrelu_cuda needs a CUDA tensor, got {x.device}")
@@ -179,10 +181,12 @@ def filtered_lrelu_cuda(
     fu_c = np.ascontiguousarray(fu[::-1] * up, np.float32)
     fd_c = np.ascontiguousarray(fd[::-1] if fd.ndim == 1 else fd[::-1, ::-1], np.float32)
 
+    wmma = mma_down_operand_on(fd, x.device).data_ptr() if mma_down(x.dtype, fd) else None
+
     lib = build()["filtered_lrelu_fwd"]
     out = torch.empty((n, out_h, out_w, c), dtype=x.dtype, device=x.device)
     err = lib.sg3_flrelu_fwd(
-        x.data_ptr(), bias.data_ptr(), fu_c.ctypes.data, fd_c.ctypes.data,
+        x.data_ptr(), bias.data_ptr(), fu_c.ctypes.data, fd_c.ctypes.data, wmma,
         out.data_ptr(), 0 if x.dtype == torch.float32 else 1,
         n, h, w, c, out_h, out_w, up, tu, td, radial, py0, px0,
         float(gain), float(slope), math.inf if clamp is None else float(clamp),

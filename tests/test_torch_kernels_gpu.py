@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels of the port against their plain versions, on the card.
 
-The filtered-lrelu forward kernel against `filtered_lrelu_ref`, the backward
+The filtered-lrelu forward kernel against `filtered_lrelu_ref` (its down pass
+on the tensor cores for bf16 radial layers, on the CUDA cores otherwise), the backward
 kernel against `filtered_lrelu_bwd_ref`, and autograd through both; the
 banded-FIR probe's tap-chain kernel against `fir_taps_ref` and its
 tensor-core kernel against `fir_banded_ref`.
@@ -19,12 +20,14 @@ import torch
 from stylegan3_editing_tpu_torch.models.sg3 import (Generator, build_synthesis_layout,
                                                     sg3_r_config, sg3_t_config)
 from stylegan3_editing_tpu_torch.ops import filtered_lrelu, filtered_lrelu_bwd_ref
-from stylegan3_editing_tpu_torch.ops import fir_cuda, flrelu_cuda
+from stylegan3_editing_tpu_torch.ops import cuda_build, fir_cuda, flrelu_cuda
 from stylegan3_editing_tpu_torch.ops.banded_fir import (banded, fir_banded, fir_banded_ref,
                                                         fir_taps, fir_taps_ref, hann_taps)
 
-# u=2 pad, u=4 crop, separable, separable crop, and a narrow-channel radial layer.
-GEOMETRIES = ["L0_36_1024", "L2_52_1024", "L12_1044_64", "L13_1024_64", "L8_276_406"]
+# u=2 pad, u=4 crop, separable, separable crop, and radial layers whose bf16
+# down pass runs on the tensor cores: u=2 (L8, L11) and u=4 (L10).
+GEOMETRIES = ["L0_36_1024", "L2_52_1024", "L12_1044_64", "L13_1024_64", "L8_276_406",
+              "L10_1044_161", "L11_1044_102"]
 # The backward also on SG3-T's separable u=4 layer (its own tile shape) and crop.
 BWD_GEOMETRIES = GEOMETRIES + ["T:L2_52_512", "T:L13_1024_32"]
 
@@ -71,6 +74,16 @@ def test_flrelu_kernel_matches_plain(cuda_device, name, dtype):
     assert got.dtype == xd.dtype and got.shape == ref.shape
     atol, rtol = (1e-4, 1e-4) if dtype == "float32" else (1e-3, 2 ** -8)
     torch.testing.assert_close(got.float(), ref, atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu
+def test_flrelu_forward_sass_holds_bf16_tensor_core_instructions(cuda_device):
+    """The bf16 radial instantiations' down pass is m16n8k16 bf16 mma.sync."""
+    flrelu_cuda.build()
+    counts = cuda_build.sass_mma_counts("filtered_lrelu_fwd")
+    if counts is None:
+        pytest.skip("cuobjdump not found")
+    assert counts["HMMA.16816.F32.BF16"] > 0, counts
 
 
 @pytest.mark.gpu
