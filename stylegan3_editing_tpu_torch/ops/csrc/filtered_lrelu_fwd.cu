@@ -32,7 +32,11 @@
 //   built on the host: flrelu_cuda.mma_down_operand). W and the up grid are
 //   each split into bf16 hi + lo, and hi.hi + hi.lo + lo.hi (m16n8k16
 //   mma.sync, fp32 sums) keep ~2^-16 of the fp32 result. The up passes stay
-//   on the CUDA cores.
+//   on the CUDA cores;
+// - on those layers a thread loads a pixel's 8 input channels with one or
+//   two aligned 16-byte loads (`load_tile_bf16`) instead of 8 lanes with a
+//   2-byte load each: the input tile's element loads took most of a block's
+//   time at u = 2.
 // TMA and pipelining are left for later work.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
@@ -151,6 +155,64 @@ __device__ __forceinline__ void up_run(const Taps& t, const float* src, int stri
     }
 }
 
+// Step 1 on bf16 tensor-core layers: the input tile [KIN][KIN][kCg] by
+// pixels, bias on real pixels, zeros elsewhere. A pixel's channels c0 ..
+// c0 + 7 are 16 bytes that lie in one or two aligned 16-byte chunks of x
+// (ragged channel counts misalign them), so a thread loads the chunks and
+// shifts the slice out in registers: a word shift by 2 and by 1 (selects),
+// then a funnel shift by 0 or 16 bits. Channels past g.c are zero; a pixel
+// whose chunks would reach past either end of x loads element by element.
+template <int KIN, int XPITCH>
+__device__ __forceinline__ void load_tile_bf16(const __nv_bfloat16* __restrict__ x,
+                                               const float* __restrict__ bias, float* buf0,
+                                               const Geometry& g, int n, int c0, int i0_y,
+                                               int i0_x) {
+    const int nc = min(kCg, g.c - c0);  // real channels of the group
+    float b[kCg];
+#pragma unroll
+    for (int k = 0; k < kCg; ++k) b[k] = k < nc ? bias[c0 + k] : 0.f;
+    const uintptr_t x_lo = reinterpret_cast<uintptr_t>(x);
+    const uintptr_t x_hi = reinterpret_cast<uintptr_t>(x + size_t(g.n) * g.h * g.w * g.c);
+    for (int p = threadIdx.x; p < KIN * KIN; p += kThreads) {
+        const int col = p % KIN, row = p / KIN;
+        const int iy = i0_y + row, ix = i0_x + col;
+        float f[kCg] = {};
+        if (iy >= 0 && iy < g.h && ix >= 0 && ix < g.w) {
+            const __nv_bfloat16* px = x + ((size_t(n) * g.h + iy) * g.w + ix) * g.c + c0;
+            const uintptr_t a = reinterpret_cast<uintptr_t>(px), base = a & ~uintptr_t(15);
+            const int sh = int(a - base) >> 1;  // the slice's first element in the chunk
+            if (base >= x_lo && base + 32 <= x_hi) {
+                const uint4* src = reinterpret_cast<const uint4*>(base);
+                const uint4 q0 = __ldg(src);
+                const uint4 q1 = sh + nc > kCg ? __ldg(src + 1) : make_uint4(0, 0, 0, 0);
+                uint32_t w[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+                if (sh & 4) {
+#pragma unroll
+                    for (int j = 0; j < 6; ++j) w[j] = w[j + 2];
+                }
+                if (sh & 2) {
+#pragma unroll
+                    for (int j = 0; j < 5; ++j) w[j] = w[j + 1];
+                }
+#pragma unroll
+                for (int k = 0; k < kCg / 2; ++k) {  // bf16 -> fp32 is a 16-bit shift
+                    const uint32_t pair = __funnelshift_r(w[k], w[k + 1], 16 * (sh & 1));
+                    f[2 * k] = __uint_as_float(pair << 16);
+                    f[2 * k + 1] = __uint_as_float(pair & 0xffff0000u);
+                }
+            } else {
+#pragma unroll
+                for (int k = 0; k < kCg; ++k) f[k] = k < nc ? __bfloat162float(px[k]) : 0.f;
+            }
+#pragma unroll
+            for (int k = 0; k < kCg; ++k) f[k] = k < nc ? f[k] + b[k] : 0.f;
+        }
+        float4* dst = reinterpret_cast<float4*>(buf0 + row * XPITCH + col * kCg);
+        dst[0] = make_float4(f[0], f[1], f[2], f[3]);
+        dst[1] = make_float4(f[4], f[5], f[6], f[7]);
+    }
+}
+
 // acc[r] += sum_k f[k] * src[(2r + k) * stride], r < kR: R outputs of a
 // stride-2 FIR from one register-resident run of 2R + TD - 2 samples.
 template <int TD>
@@ -252,15 +314,19 @@ flrelu_fwd_kernel(const T* __restrict__ x, const float* __restrict__ bias,
 
     // 1. Input tile [kIn][kIn][kCg]; the bias lands on real pixels only, so
     //    the padding stays zero.
-    for (int idx = tid; idx < S::kIn * S::kIn * kCg; idx += kThreads) {
-        const int c = idx % kCg, rest = idx / kCg;
-        const int col = rest % S::kIn, row = rest / S::kIn;
-        const int iy = i0_y + row, ix = i0_x + col, ch = c0 + c;
-        float v = 0.f;
-        if (iy >= 0 && iy < g.h && ix >= 0 && ix < g.w && ch < g.c) {
-            v = load_f32(x + ((size_t(n) * g.h + iy) * g.w + ix) * g.c + ch) + bias[ch];
+    if constexpr (kMma) {
+        load_tile_bf16<S::kIn, S::kXPitch>(x, bias, buf0, g, n, c0, i0_y, i0_x);
+    } else {
+        for (int idx = tid; idx < S::kIn * S::kIn * kCg; idx += kThreads) {
+            const int c = idx % kCg, rest = idx / kCg;
+            const int col = rest % S::kIn, row = rest / S::kIn;
+            const int iy = i0_y + row, ix = i0_x + col, ch = c0 + c;
+            float v = 0.f;
+            if (iy >= 0 && iy < g.h && ix >= 0 && ix < g.w && ch < g.c) {
+                v = load_f32(x + ((size_t(n) * g.h + iy) * g.w + ix) * g.c + ch) + bias[ch];
+            }
+            buf0[row * S::kXPitch + col * kCg + c] = v;
         }
-        buf0[row * S::kXPitch + col * kCg + c] = v;
     }
     __syncthreads();
 
