@@ -46,7 +46,9 @@ Phases (any failure exits non-zero before the result lines):
    [76, 76, 16896] in both dtypes, timed beside its plain version, its
    library call (TF32 off) and its bound.
 
-TF32 is off for matmuls and cuDNN convs. The second-to-last line is the
+PyTorch's TF32 flags stay at their defaults: matmuls run in fp32 by
+default, and the port holds its cuDNN convs to fp32 itself (`device.conv2d`;
+phase 9's library conv goes through it too). The second-to-last line is the
 kernel table as JSON; the last line is ``{"ok": true, "device": ...}``.
 Times carry the card's name and power limit.
 """
@@ -148,6 +150,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from stylegan3_editing_tpu_torch.criteria import LPIPS
+    from stylegan3_editing_tpu_torch.device import conv2d
     from stylegan3_editing_tpu_torch.inversion import PTI, PTIOptions
     from stylegan3_editing_tpu_torch.models.sg3 import (
         Generator, build_synthesis_layout, sg3_r_config)
@@ -166,9 +169,9 @@ def main() -> int:
     print(f"device: {kind}")
     print(smi)
     card = f"[{smi}]"
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print("TF32 off for matmul and cuDNN")
+    print(f"PyTorch's TF32 flags left at their defaults (matmul "
+          f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN {torch.backends.cudnn.allow_tf32}): "
+          f"the port holds its cuDNN convs to fp32 itself (device.conv2d)")
     dev = torch.device("cuda")
 
     # 2. Build.
@@ -558,8 +561,8 @@ def main() -> int:
         return {
             "fir_taps": (lambda: fir_cuda.fir_taps_cuda(p, taps, taps),
                          lambda: fir_taps_ref(p, taps, taps),
-                         lambda: torch.nn.functional.conv2d(
-                             p.float().permute(2, 0, 1).unsqueeze(0), w2d, groups=p.shape[2])),
+                         lambda: conv2d(p.float().permute(2, 0, 1).unsqueeze(0), w2d,
+                                        groups=p.shape[2])),
             "fir_banded": (lambda: fir_cuda.fir_banded_cuda(p, mw, mh),
                            lambda: fir_banded_ref(p, mw, mh),
                            lambda: torch.einsum("iq,jp,qpc->ijc", mh.float(), mw.float(),

@@ -3,7 +3,8 @@
 Entry points run on the CUDA card unless the caller asks for the CPU. With
 no card and no explicit ``device="cpu"`` they raise: nothing carries on
 quietly on the CPU. A tensor's device also decides between a hand-written
-kernel and its plain version (`kernel_or_plain`).
+kernel and its plain version (`kernel_or_plain`). Every convolution of the
+port goes through `conv2d`, which keeps cuDNN in full fp32.
 """
 
 from __future__ import annotations
@@ -11,8 +12,25 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import torch
+import torch.nn.functional as F
 
 DeviceLike = Union[None, str, torch.device]
+
+
+def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+           **kwargs) -> torch.Tensor:
+    """`F.conv2d` with cuDNN held to full fp32 for the call.
+
+    PyTorch lets cuDNN run fp32 convolutions in TF32 by default
+    (``torch.backends.cudnn.allow_tf32``), which keeps about three decimal
+    digits. The caller's cuDNN settings come back after the call; the
+    others (enabled, benchmark, deterministic) are passed through, since
+    `torch.backends.cudnn.flags` would otherwise reset them to its defaults.
+    """
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=False):
+        return F.conv2d(x, weight, bias, **kwargs)
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

@@ -2,9 +2,9 @@
 
 Counterpart of the JAX package's `models/backbones/common.py`. Weights are
 stored in the flax layout (HWIO kernels), so a flax tree copies in as it is.
-The conv runs through PyTorch's convolution (the JAX package leaves these
-convs to XLA) on the NCHW view of an NHWC tensor, which is channels-last in
-memory, so no copy is made either way.
+The conv runs through PyTorch's convolution in full fp32 (`device.conv2d`;
+the JAX package leaves these convs to XLA) on the NCHW view of an NHWC
+tensor, which is channels-last in memory, so no copy is made either way.
 """
 
 from __future__ import annotations
@@ -14,8 +14,9 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
+
+from ...device import conv2d
 
 
 class Conv2d(nn.Module):
@@ -37,8 +38,8 @@ class Conv2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.kernel.permute(3, 2, 0, 1), self.bias,
-                     stride=self.stride, padding=self.padding)
+        y = conv2d(x.permute(0, 3, 1, 2), self.kernel.permute(3, 2, 0, 1), self.bias,
+                   stride=self.stride, padding=self.padding)
         return y.permute(0, 2, 3, 1)
 
 

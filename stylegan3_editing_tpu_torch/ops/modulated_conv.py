@@ -6,7 +6,8 @@ by the styles equals scaling the input channels, and demodulating the
 weight's output channels equals scaling the output channels. So one conv,
 shared across the batch, runs on style-scaled inputs and its output is
 rescaled. With a 1×1 kernel (SG3-R) the conv is one `torch.matmul` over the
-channel axis; larger kernels go to `F.conv2d`. Weights are HWIO.
+channel axis; larger kernels go to `F.conv2d` in full fp32 (`device.conv2d`).
+Weights are HWIO.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import torch
-import torch.nn.functional as F
+
+from ..device import conv2d
 
 
 def modulated_conv2d(
@@ -61,8 +63,8 @@ def modulated_conv2d(
     if kh == 1 and kw == 1 and padding == 0:
         x = torch.matmul(x, w[0, 0].to(x.dtype))
     else:
-        x = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).to(x.dtype),
-                     padding=padding).permute(0, 2, 3, 1)
+        x = conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).to(x.dtype),
+                   padding=padding).permute(0, 2, 3, 1)
     if demodulate:
         x = x * dcoefs[:, None, None, :].to(x.dtype)
     return x.to(out_dtype).contiguous()

@@ -9,8 +9,8 @@ reference `_upfirdn2d_ref`):
 4. keep every ``down``-th pixel.
 
 Public tensors are NHWC; inside, the depthwise `F.conv2d` runs on an NCHW
-view. A 1-D filter runs as two 1-D passes (width, then height), each
-scaled by ``gain ** 0.5``.
+view, in full fp32 (`device.conv2d`). A 1-D filter runs as two 1-D passes
+(width, then height), each scaled by ``gain ** 0.5``.
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..device import conv2d
 
 Scaling = Union[int, Sequence[int]]
 Padding = Union[int, Sequence[int]]
@@ -60,7 +62,7 @@ def _depthwise_conv(x: torch.Tensor, f: torch.Tensor,
     """Valid depthwise correlation of NCHW ``x`` with a shared 2-D ``f``."""
     c = x.shape[1]
     w = f[None, None].expand(c, 1, *f.shape)
-    return F.conv2d(x, w, stride=stride, groups=c)
+    return conv2d(x, w, stride=stride, groups=c)
 
 
 def upfirdn2d(

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from stylegan3_editing_tpu_torch.models.backbones.common import Conv2d
 from stylegan3_editing_tpu_torch.models.sg3 import Generator, sg3_r_config
 from stylegan3_editing_tpu_torch.models.sg3.config import build_synthesis_layout
 from stylegan3_editing_tpu_torch.ops import cuda_build, fir_cuda, flrelu_cuda
@@ -17,6 +18,8 @@ from stylegan3_editing_tpu_torch.device import kernel_or_plain
 from stylegan3_editing_tpu_torch.ops.banded_fir import (banded, fir_banded, fir_banded_ref,
                                                         fir_taps, fir_taps_ref, hann_taps)
 from stylegan3_editing_tpu_torch.ops.filtered_lrelu import choose_impl
+from stylegan3_editing_tpu_torch.ops.modulated_conv import modulated_conv2d
+from stylegan3_editing_tpu_torch.ops.upfirdn2d import upfirdn2d
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "flax", "stylegan3_editing_tpu"}
@@ -159,6 +162,42 @@ def test_fir_dispatch_sends_cpu_tensors_to_the_plain_versions():
     assert set(cuda_build.launches) == {"filtered_lrelu_fwd", "filtered_lrelu_bwd", "fir_taps",
                                         "fir_banded"}
     assert flrelu_cuda.launches is cuda_build.launches and fir_cuda.launches is cuda_build.launches
+
+
+def _conv_calls():
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(2, 9, 10, 4).astype(np.float32))
+    return {
+        "modulated_conv2d_3x3": lambda: modulated_conv2d(
+            x, torch.from_numpy(rng.randn(3, 3, 4, 5).astype(np.float32)),
+            torch.from_numpy(rng.randn(2, 4).astype(np.float32)), padding=1),
+        "alexnet_Conv2d": lambda: Conv2d(4, 6, 3, padding=1,
+                                         generator=torch.Generator().manual_seed(0))(x),
+        "upfirdn2d": lambda: upfirdn2d(x, hann_taps(4), up=2, padding=3),
+    }
+
+
+@pytest.mark.parametrize("op", sorted(_conv_calls()))
+def test_convs_run_without_tf32_and_restore_the_callers_flags(op, monkeypatch):
+    """Every cuDNN conv of the port sees TF32 off and the caller's other
+    cuDNN flags (``flags()`` would reset them to its defaults); the caller's
+    TF32 setting (PyTorch's default: allowed) is back after the call."""
+    cudnn = torch.backends.cudnn
+    seen = []
+    conv2d = torch.nn.functional.conv2d
+
+    def recording_conv2d(*args, **kwargs):
+        seen.append((cudnn.allow_tf32, cudnn.enabled, cudnn.benchmark, cudnn.deterministic))
+        return conv2d(*args, **kwargs)
+
+    monkeypatch.setattr(torch.nn.functional, "conv2d", recording_conv2d)
+    call = _conv_calls()[op]
+    with cudnn.flags(enabled=True, benchmark=True, deterministic=True, allow_tf32=True):
+        out = call()
+        assert (cudnn.allow_tf32, cudnn.enabled, cudnn.benchmark, cudnn.deterministic) == \
+            (True, True, True, True)
+    assert seen and all(s == (False, True, True, True) for s in seen), seen
+    assert torch.isfinite(out).all()
 
 
 def test_library_key_covers_included_headers(tmp_path, monkeypatch):

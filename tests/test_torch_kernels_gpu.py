@@ -17,9 +17,11 @@ import numpy as np
 import pytest
 import torch
 
+from stylegan3_editing_tpu_torch.models.backbones.common import Conv2d
 from stylegan3_editing_tpu_torch.models.sg3 import (Generator, build_synthesis_layout,
                                                     sg3_r_config, sg3_t_config)
 from stylegan3_editing_tpu_torch.ops import filtered_lrelu, filtered_lrelu_bwd_ref
+from stylegan3_editing_tpu_torch.ops.modulated_conv import modulated_conv2d
 from stylegan3_editing_tpu_torch.ops import cuda_build, fir_cuda, flrelu_cuda
 from stylegan3_editing_tpu_torch.ops.banded_fir import (banded, fir_banded, fir_banded_ref,
                                                         fir_taps, fir_taps_ref, hann_taps)
@@ -84,6 +86,40 @@ def test_flrelu_forward_sass_holds_bf16_tensor_core_instructions(cuda_device):
     if counts is None:
         pytest.skip("cuobjdump not found")
     assert counts["HMMA.16816.F32.BF16"] > 0, counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["modulated_conv2d_3x3", "alexnet_Conv2d"])
+def test_convs_are_full_fp32_under_pytorchs_tf32_default(cuda_device, op):
+    """With PyTorch's default (cuDNN may use TF32), the port's fp32 convs on
+    the card agree with the same op in float64 on the CPU to 1e-5 of max
+    |ref|: 576 products per output, so TF32's 2^-11 operands would miss it
+    by one to two orders. The fixture's setting comes back after the test."""
+    rng = np.random.RandomState(13)
+    x = rng.randn(2, 32, 32, 64)
+    if op == "modulated_conv2d_3x3":
+        w, s = rng.randn(3, 3, 64, 64), rng.randn(2, 64)
+
+        def run(device, dtype):
+            return modulated_conv2d(*(torch.from_numpy(a).to(device, dtype) for a in (x, w, s)),
+                                    padding=1)
+    else:
+        conv = Conv2d(64, 64, 3, padding=1, generator=torch.Generator().manual_seed(0))
+
+        def run(device, dtype):
+            return conv.to(device, dtype)(torch.from_numpy(x).to(device, dtype))
+    ref = run("cpu", torch.float64)
+    cudnn = torch.backends.cudnn
+    fixture_setting = cudnn.allow_tf32
+    cudnn.allow_tf32 = True  # PyTorch's default
+    got = run(cuda_device, torch.float32)
+    torch.cuda.synchronize()
+    still_allowed = cudnn.allow_tf32
+    cudnn.allow_tf32 = fixture_setting
+    assert still_allowed, "the conv did not restore the caller's TF32 setting"
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    err = float((got.double().cpu() - ref).abs().max())
+    assert err <= 1e-5 * float(ref.abs().max()), err
 
 
 @pytest.mark.gpu
