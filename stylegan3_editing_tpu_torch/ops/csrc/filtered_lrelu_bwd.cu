@@ -5,12 +5,14 @@
 // the forward  y = down2(fd, clamp(lrelu(up_u(fu, x + b)) * gain))  it computes
 //   dx = down_u(fu, up2(fd, dy) * act'(A) * gain * u^2),  A = up_u(fu, x + b),
 // on the backward frame of the up grid (the forward's, shifted by tu-1-p0):
-//   1. x tile (+ bias on real pixels only) -> A by the forward's up-FIR, and
-//      from A the mask act'(A) * gain * u^2, zero where |lrelu(A) * gain| >
-//      clamp: the forward's own mask, recomputed, so no sign tensor is stored;
-//   2. dy tile -> x2 up-FIR by correlation with fd (the 36 real taps of the
-//      12x12 radial fd per up-grid point, or two 1-D passes), times the mask;
-//   3. stride-u down-FIR by correlation with fu along W, then H -> dx.
+//   1. x tile (+ bias on real pixels only) and dy tile, both loaded at block
+//      start with wide loads of a pixel's 4-channel slice;
+//   2-3. A by the forward's up-FIR, and from A the mask act'(A) * gain * u^2,
+//      zero where |lrelu(A) * gain| > clamp: the forward's own mask,
+//      recomputed, so no sign tensor is stored;
+//   4. x2 up-FIR of dy by correlation with fd (the 36 real taps of the 12x12
+//      radial fd per up-grid point, or two 1-D passes), times the mask;
+//   5-6. stride-u down-FIR by correlation with fu along W, then H -> dx.
 // Each block holds one 16 x 16 dx tile of one image for 4 channels; the up
 // grid of the tile, u*15 + tu on a side (42 at u = 2, 84 at u = 4), lives
 // only in shared memory. At the forward's 8 channels the u = 4 up grid alone
@@ -28,7 +30,13 @@
 // forward kernel, the geometry is compile-time, the taps ride in the kernel's
 // parameter space, and every pass is register-blocked (8 up-grid samples, or
 // kT/2 outputs, per thread from one register-resident run of inputs).
-// Tensor cores, TMA and pipelining are left for later work.
+// Device memory is touched as whole slices: a thread loads a pixel's 4
+// channels of x and of dy from the one or two aligned 16-byte chunks that
+// hold them (`load_slice`; element loads only at the ends of a tensor) and
+// stores a pixel's 4 channels of dx with one 8-byte (bf16) or 16-byte (fp32)
+// store where the slice is aligned. The grid's fastest index is the channel
+// group, so the blocks that share a 32-byte sector of x, dy or dx run
+// together and the sector is fetched once.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC -o libflrelu_bwd.so filtered_lrelu_bwd.cu
@@ -36,6 +44,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -61,11 +71,12 @@ struct Taps {
 
 // Smallest v' >= v with v' % m == r.
 constexpr int pad_to(int v, int m, int r) { return v + ((r - v % m) % m + m) % m; }
-constexpr int max3(int a, int b, int c) { return a > b ? (a > c ? a : c) : (b > c ? b : c); }
+constexpr int max2(int a, int b) { return a > b ? a : b; }
 
 template <int U, int TU, int TD, bool RADIAL>
 struct Shape {
     static constexpr int kThreads = U == 2 ? 512 : 1024;
+    static constexpr int kMinBlocks = U == 2 ? 3 : 1;  // blocks per SM the registers must allow
     static constexpr int kLog2U = U == 2 ? 1 : 2;
     static constexpr int kT = U == 4 && !RADIAL ? 8 : 16;  // dx tile side
     static constexpr int kR = kT / 2;                   // dx outputs per thread in a down pass
@@ -87,23 +98,126 @@ struct Shape {
     static constexpr int kT1Pitch = pad_to(kSpan * kCg, 32, kCg); // W-upsampled row
     static constexpr int kMPitch = pad_to(kSpan * kCg, 32, kCg);  // up-grid row
     static constexpr int kDPitch = pad_to(kT * kCg, 32, kCg);     // W-downsampled row
-    static constexpr int kBuf0 = kSpan * kMPitch;
-    static constexpr int kBuf1 = max3(kInA * kXPitch, kInG * kYPitch, kSpan * kDPitch);
-    static constexpr int kBuf2 = (RADIAL || kInA > kInG ? kInA : kInG) * kT1Pitch;
+    // Regions, in floats. buf0: the x tile (phases 1-2), then the mask and
+    // dA (3-5), then the dx tile (6). buf1: the dy tile (1-4). buf2: the
+    // W-upsampled rows (2-3, and 4 if separable), then the W-downsampled
+    // rows (5-6).
+    static constexpr int kBuf0 = max2(max2(kSpan * kMPitch, kInA * kXPitch), kT * kT * kCg);
+    static constexpr int kBuf1 = kInG * kYPitch;
+    static constexpr int kBuf2 = max2((RADIAL ? kInA : max2(kInA, kInG)) * kT1Pitch,
+                                      kSpan * kDPitch);
     static constexpr size_t kSmemBytes = sizeof(float) * size_t(kBuf0 + kBuf1 + kBuf2);
     static_assert(U == 2 || U == 4, "up factor 2 or 4");
     static_assert(TU % U == 0 && TU <= kMaxTu && TD % 2 == 0 && TD <= kMaxTd, "tap counts");
     static_assert(kSpan % 2 == 0, "the radial G pass walks row pairs");
+    static_assert(kT * kT <= kThreads, "one thread per dx pixel in the store");
     static_assert(kSmemBytes <= 232448, "a block may hold 227 KB of shared memory");
 };
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
+// A pixel's channel slice p[0 .. nc), nc <= 4, as floats, zero past nc. The
+// slice lies in one or two aligned 16-byte chunks of [lo, hi) (ragged channel
+// counts misalign it): the thread loads them and shifts the slice out in
+// registers, a word shift by 2 and by 1 (selects), then for bf16 a funnel
+// shift by 0 or 16 bits. A slice whose chunks would reach past either end of
+// the tensor loads element by element.
+template <typename T>
+__device__ __forceinline__ void load_slice(const T* p, int nc, const T* lo, const T* hi,
+                                           float (&f)[kCg]) {
+    constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+    const uintptr_t a = reinterpret_cast<uintptr_t>(p), base = a & ~uintptr_t(15);
+    const int sh = int(a - base);  // bytes of the first chunk before the slice
+    const bool two = sh + nc * int(sizeof(T)) > 16;
+    if (base >= reinterpret_cast<uintptr_t>(lo) &&
+        base + (two ? 32 : 16) <= reinterpret_cast<uintptr_t>(hi)) {
+        const uint4* src = reinterpret_cast<const uint4*>(base);
+        const uint4 q0 = __ldg(src);
+        const uint4 q1 = two ? __ldg(src + 1) : make_uint4(0, 0, 0, 0);
+        uint32_t w[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+        if (sh & 8) {
+#pragma unroll
+            for (int j = 0; j < 6; ++j) w[j] = w[j + 2];
+        }
+        if (sh & 4) {
+#pragma unroll
+            for (int j = 0; j < 5; ++j) w[j] = w[j + 1];
+        }
+        if constexpr (kBf16) {
+#pragma unroll
+            for (int k = 0; k < kCg / 2; ++k) {  // bf16 -> fp32 is a 16-bit shift
+                const uint32_t pair = __funnelshift_r(w[k], w[k + 1], 8 * (sh & 2));
+                f[2 * k] = __uint_as_float(pair << 16);
+                f[2 * k + 1] = __uint_as_float(pair & 0xffff0000u);
+            }
+        } else {
+#pragma unroll
+            for (int k = 0; k < kCg; ++k) f[k] = __uint_as_float(w[k]);
+        }
+#pragma unroll
+        for (int k = 0; k < kCg; ++k) f[k] = k < nc ? f[k] : 0.f;
+    } else {
+#pragma unroll
+        for (int k = 0; k < kCg; ++k) {
+            if constexpr (kBf16) {
+                f[k] = k < nc ? __bfloat162float(p[k]) : 0.f;
+            } else {
+                f[k] = k < nc ? p[k] : 0.f;
+            }
+        }
+    }
 }
-__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
-    *p = __float2bfloat16_rn(v);
+
+// A tile [KIN][KIN] of pixels' 4-channel slices (+ bias on real pixels)
+// into dst[row * PITCH + col * kCg + c], zeros past the tensor's edges.
+template <int THREADS, int KIN, int PITCH, typename T>
+__device__ __forceinline__ void load_tile(const T* __restrict__ src, const float* bias,
+                                          float* dst, int n, int h, int w, int c, int c0,
+                                          int i0_y, int i0_x, int n_img) {
+    const int nc = min(kCg, c - c0);
+    const T* lo = src;
+    const T* hi = src + size_t(n_img) * h * w * c;
+    for (int p = threadIdx.x; p < KIN * KIN; p += THREADS) {
+        const int col = p % KIN, row = p / KIN;
+        const int iy = i0_y + row, ix = i0_x + col;
+        float f[kCg] = {};
+        if (iy >= 0 && iy < h && ix >= 0 && ix < w) {
+            load_slice(src + ((size_t(n) * h + iy) * w + ix) * c + c0, nc, lo, hi, f);
+            if (bias != nullptr) {
+#pragma unroll
+                for (int k = 0; k < kCg; ++k) f[k] += k < nc ? bias[c0 + k] : 0.f;
+            }
+        }
+        *reinterpret_cast<float4*>(dst + row * PITCH + col * kCg) =
+            make_float4(f[0], f[1], f[2], f[3]);
+    }
+}
+
+// A pixel's slice of dx: one 16-byte (fp32) or 8-byte (bf16) store where it
+// is aligned and whole, else one store per channel.
+__device__ __forceinline__ void store_slice(float* p, const float4& v, int nc) {
+    if (nc == kCg && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+        *reinterpret_cast<float4*>(p) = v;
+        return;
+    }
+    const float f[kCg] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int k = 0; k < kCg; ++k) {
+        if (k < nc) p[k] = f[k];
+    }
+}
+__device__ __forceinline__ void store_slice(__nv_bfloat16* p, const float4& v, int nc) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+    if (nc == kCg && (reinterpret_cast<uintptr_t>(p) & 7) == 0) {
+        uint2 bits;
+        bits.x = *reinterpret_cast<const uint32_t*>(&lo);
+        bits.y = *reinterpret_cast<const uint32_t*>(&hi);
+        *reinterpret_cast<uint2*>(p) = bits;
+        return;
+    }
+    const __nv_bfloat16 b[kCg] = {lo.x, lo.y, hi.x, hi.y};
+#pragma unroll
+    for (int k = 0; k < kCg; ++k) {
+        if (k < nc) p[k] = b[k];
+    }
 }
 
 // One group of an up pass: kUpOut up-grid samples from RUN inputs
@@ -142,21 +256,22 @@ __device__ __forceinline__ void down_run(const float* f, const float* src, int s
 }
 
 template <typename T, int U, int TU, int TD, bool RADIAL>
-__global__ void __launch_bounds__((Shape<U, TU, TD, RADIAL>::kThreads))
+__global__ void __launch_bounds__((Shape<U, TU, TD, RADIAL>::kThreads),
+                                  (Shape<U, TU, TD, RADIAL>::kMinBlocks))
 flrelu_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ x,
                   const float* __restrict__ bias, T* __restrict__ dx,
                   const __grid_constant__ Geometry g, const __grid_constant__ Taps taps) {
     using S = Shape<U, TU, TD, RADIAL>;
     constexpr int kThreads = S::kThreads;
-    extern __shared__ float smem[];
-    float* buf0 = smem;                         // the mask, then dA
-    float* buf1 = smem + S::kBuf0;              // x tile, then dy tile, then W-downsampled rows
-    float* buf2 = smem + S::kBuf0 + S::kBuf1;   // W-upsampled rows (A, then G if separable)
+    extern __shared__ __align__(16) float smem[];
+    float* buf0 = smem;                         // x tile; the mask, then dA; the dx tile
+    float* buf1 = smem + S::kBuf0;              // dy tile
+    float* buf2 = smem + S::kBuf0 + S::kBuf1;   // W-upsampled rows, then W-downsampled rows
 
     const int tid = threadIdx.x;
-    const int tile_y = blockIdx.x / g.tiles_w;
-    const int tile_x = blockIdx.x - tile_y * g.tiles_w;
-    const int c0 = blockIdx.y * kCg;
+    const int c0 = blockIdx.x * kCg;
+    const int tile_y = blockIdx.y / g.tiles_w;
+    const int tile_x = blockIdx.y - tile_y * g.tiles_w;
     const int n = blockIdx.z;
     const int iy0 = tile_y * S::kT, ix0 = tile_x * S::kT;  // dx tile origin
 
@@ -171,17 +286,12 @@ flrelu_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ x,
     const int e_gy = base_gy & 1, e_gx = base_gx & 1;
     const int ig_y = (base_gy - e_gy) >> 1, ig_x = (base_gx - e_gx) >> 1;
 
-    // 1. x tile [kInA][kInA][kCg] + bias on real pixels; the padding stays zero.
-    for (int idx = tid; idx < S::kInA * S::kInA * kCg; idx += kThreads) {
-        const int c = idx % kCg, rest = idx / kCg;
-        const int col = rest % S::kInA, row = rest / S::kInA;
-        const int iy = ia_y + row, ix = ia_x + col, ch = c0 + c;
-        float v = 0.f;
-        if (iy >= 0 && iy < g.h && ix >= 0 && ix < g.w && ch < g.c) {
-            v = load_f32(x + ((size_t(n) * g.h + iy) * g.w + ix) * g.c + ch) + bias[ch];
-        }
-        buf1[row * S::kXPitch + col * kCg + c] = v;
-    }
+    // 1. Both input tiles, [kIn][kIn][kCg] each: x + bias on real pixels into
+    //    buf0, dy into buf1; the padding stays zero.
+    load_tile<kThreads, S::kInA, S::kXPitch>(x, bias, buf0, n, g.h, g.w, g.c, c0, ia_y, ia_x,
+                                             g.n);
+    load_tile<kThreads, S::kInG, S::kYPitch>(dy, static_cast<const float*>(nullptr), buf1, n,
+                                             g.yh, g.yw, g.c, c0, ig_y, ig_x, g.n);
     __syncthreads();
 
     // 2. A: up-FIR along W into buf2[row][j][c]; lanes over (c, row).
@@ -189,7 +299,7 @@ flrelu_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ x,
         const int c = idx % kCg, row = (idx / kCg) % S::kInA, grp = idx / (kCg * S::kInA);
         float acc[kUpOut] = {};
         up_run<U, TU, S::kRunA>(
-            taps.fu_a, buf1 + row * S::kXPitch + S::kStepsA * grp * kCg + c, kCg, acc);
+            taps.fu_a, buf0 + row * S::kXPitch + S::kStepsA * grp * kCg + c, kCg, acc);
 #pragma unroll
         for (int m = 0; m < kUpOut; ++m) {
             const int j = -e_ax + kUpOut * grp + m;
@@ -198,8 +308,7 @@ flrelu_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ x,
     }
     __syncthreads();
 
-    // 3. A: up-FIR along H, then the mask into buf0[i][j][c]; lanes over
-    //    (c, j). Meanwhile the dy tile [kInG][kInG][kCg] goes into buf1.
+    // 3. A: up-FIR along H, then the mask into buf0[i][j][c]; lanes over (c, j).
     for (int idx = tid; idx < S::kSpan * S::kGroupsA * kCg; idx += kThreads) {
         const int c = idx % kCg, j = (idx / kCg) % S::kSpan, grp = idx / (kCg * S::kSpan);
         float acc[kUpOut] = {};
@@ -214,16 +323,6 @@ flrelu_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ x,
             if (fabsf(pre) > g.clamp) f = 0.f;
             if (i >= 0 && i < S::kSpan) buf0[i * S::kMPitch + j * kCg + c] = f;
         }
-    }
-    for (int idx = tid; idx < S::kInG * S::kInG * kCg; idx += kThreads) {
-        const int c = idx % kCg, rest = idx / kCg;
-        const int col = rest % S::kInG, row = rest / S::kInG;
-        const int iy = ig_y + row, ix = ig_x + col, ch = c0 + c;
-        float v = 0.f;
-        if (iy >= 0 && iy < g.yh && ix >= 0 && ix < g.yw && ch < g.c) {
-            v = load_f32(dy + ((size_t(n) * g.yh + iy) * g.yw + ix) * g.c + ch);
-        }
-        buf1[row * S::kYPitch + col * kCg + c] = v;
     }
     __syncthreads();
 
@@ -281,30 +380,34 @@ flrelu_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ x,
     }
     __syncthreads();
 
-    // 5. Stride-U down-FIR along W into buf1[i][ox][c]; lanes over (c, i).
+    // 5. Stride-U down-FIR along W into buf2[i][ox][c]; lanes over (c, i).
     for (int idx = tid; idx < S::kSpan * (S::kT / S::kR) * kCg; idx += kThreads) {
         const int c = idx % kCg, i = (idx / kCg) % S::kSpan;
         const int ox = idx / (kCg * S::kSpan) * S::kR;
         float acc[S::kR] = {};
         down_run<U, TU, S::kR>(taps.fu_d, buf0 + i * S::kMPitch + U * ox * kCg + c, kCg, acc);
 #pragma unroll
-        for (int r = 0; r < S::kR; ++r) buf1[i * S::kDPitch + (ox + r) * kCg + c] = acc[r];
+        for (int r = 0; r < S::kR; ++r) buf2[i * S::kDPitch + (ox + r) * kCg + c] = acc[r];
     }
     __syncthreads();
 
-    // 6. Along H, and store dx; lanes over (c, ox), each thread computes
-    //    oy .. oy + kR - 1.
+    // 6. Along H into the dx tile buf0[oy][ox][c]; lanes over (c, ox), each
+    //    thread computes oy .. oy + kR - 1. Then one thread per pixel stores
+    //    its slice.
     for (int idx = tid; idx < S::kT * (S::kT / S::kR) * kCg; idx += kThreads) {
         const int c = idx % kCg, ox = (idx / kCg) % S::kT, oy = idx / (kCg * S::kT) * S::kR;
         float acc[S::kR] = {};
-        down_run<U, TU, S::kR>(taps.fu_d, buf1 + U * oy * S::kDPitch + ox * kCg + c,
+        down_run<U, TU, S::kR>(taps.fu_d, buf2 + U * oy * S::kDPitch + ox * kCg + c,
                                S::kDPitch, acc);
-        const int gx = ix0 + ox, ch = c0 + c;
 #pragma unroll
-        for (int r = 0; r < S::kR; ++r) {
-            const int gy = iy0 + oy + r;
-            if (gy < g.h && gx < g.w && ch < g.c)
-                store_f32(dx + ((size_t(n) * g.h + gy) * g.w + gx) * g.c + ch, acc[r]);
+        for (int r = 0; r < S::kR; ++r) buf0[((oy + r) * S::kT + ox) * kCg + c] = acc[r];
+    }
+    __syncthreads();
+    if (tid < S::kT * S::kT) {
+        const int oy = tid / S::kT, ox = tid % S::kT, gy = iy0 + oy, gx = ix0 + ox;
+        if (gy < g.h && gx < g.w) {
+            store_slice(dx + ((size_t(n) * g.h + gy) * g.w + gx) * g.c + c0,
+                        *reinterpret_cast<const float4*>(buf0 + tid * kCg), min(kCg, g.c - c0));
         }
     }
 }
@@ -321,7 +424,7 @@ int launch(const void* dy, const void* x, const void* bias, void* dx, const Geom
     const int tiles_w = (g.w + S::kT - 1) / S::kT;
     Geometry geo = g;
     geo.tiles_w = tiles_w;
-    dim3 grid(unsigned(tiles_h * tiles_w), unsigned((g.c + kCg - 1) / kCg), unsigned(g.n));
+    dim3 grid(unsigned((g.c + kCg - 1) / kCg), unsigned(tiles_h * tiles_w), unsigned(g.n));
     kernel<<<grid, S::kThreads, S::kSmemBytes, stream>>>(
         static_cast<const T*>(dy), static_cast<const T*>(x), static_cast<const float*>(bias),
         static_cast<T*>(dx), geo, taps);

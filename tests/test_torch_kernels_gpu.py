@@ -108,11 +108,13 @@ def test_convs_are_full_fp32_under_pytorchs_tf32_default(cuda_device, op):
 
         def run(device, dtype):
             return conv.to(device, dtype)(torch.from_numpy(x).to(device, dtype))
-    ref = run("cpu", torch.float64)
+    with torch.no_grad():
+        ref = run("cpu", torch.float64)
     cudnn = torch.backends.cudnn
     fixture_setting = cudnn.allow_tf32
     cudnn.allow_tf32 = True  # PyTorch's default
-    got = run(cuda_device, torch.float32)
+    with torch.no_grad():
+        got = run(cuda_device, torch.float32)
     torch.cuda.synchronize()
     still_allowed = cudnn.allow_tf32
     cudnn.allow_tf32 = fixture_setting
@@ -165,6 +167,44 @@ def test_flrelu_bwd_kernel_matches_plain(cuda_device, name, dtype):
     assert got.dtype == dt and got.shape == x.shape
     atol, rtol = (1e-4, 1e-4) if dtype == "float32" else (1e-3, 2 ** -8)
     torch.testing.assert_close(got.float(), ref, atol=atol, rtol=rtol)
+
+
+def _odd_view(a, device, dtype):
+    """``a`` on the card as a contiguous tensor that starts one element past
+    an aligned address, so no pixel's slice lies on a 16-byte boundary by
+    construction."""
+    flat = torch.zeros(a.size + 1, device=device, dtype=dtype)
+    flat[1:] = torch.from_numpy(a.ravel()).to(device, dtype)
+    return flat[1:].view(a.shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["L10_1044_161", "L11_1044_102", "L12_1044_64"])
+@pytest.mark.parametrize("c", [5, 6, 7])
+def test_flrelu_bwd_kernel_ragged_channels_odd_alignment(cuda_device, name, c):
+    """bf16, C ≡ 1, 2, 3 (mod 4), x and dy one element off alignment: the
+    wide loads take their chunks and shifts (element loads at the tensors'
+    ends), and dx's stores keep to its slices. Within one bf16 rounding of
+    `filtered_lrelu_bwd_ref`."""
+    s = _layer(name)
+    rng = np.random.RandomState(10 + c)
+    hi = 40
+    x = _odd_view(rng.randn(2, hi, hi + 3, c).astype(np.float32) * 150, cuda_device,
+                  torch.bfloat16)
+    b = torch.from_numpy(rng.randn(c).astype(np.float32)).to(cuda_device)
+    out_h = flrelu_cuda.output_size(hi, s.up_factor, s.padding[2], s.padding[3],
+                                    len(s.up_filter), s.down_filter.shape[0])
+    out_w = flrelu_cuda.output_size(hi + 3, s.up_factor, s.padding[0], s.padding[1],
+                                    len(s.up_filter), s.down_filter.shape[0])
+    dy = _odd_view(rng.randn(2, out_h, out_w, c).astype(np.float32), cuda_device, torch.bfloat16)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 2 and dy.data_ptr() % 16 == 2
+    got = flrelu_cuda.filtered_lrelu_bwd_cuda(dy, x, s.up_filter, s.down_filter, b, s.up_factor,
+                                              s.padding, 2 ** 0.5, 0.2, s.conv_clamp)
+    ref = filtered_lrelu_bwd_ref(dy.float(), x.float(), s.up_filter, s.down_filter, b,
+                                 s.up_factor, s.padding, clamp=s.conv_clamp)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    torch.testing.assert_close(got.float(), ref, atol=1e-3, rtol=2 ** -8)
 
 
 @pytest.mark.gpu
