@@ -114,6 +114,84 @@ def mma_down_operand_on(fd: np.ndarray, device: torch.device) -> torch.Tensor:
     return _mma_operands[key]
 
 
+# The backward's ×2 up pass of dy on bf16 layers with a 12×12 fd runs on the
+# tensor cores as G[m, n] = Σ_k W[m, k] · dy[window(k), n]: m is one of the
+# 16 points of a 4×4 M-tile of the up grid (the MMA's M), n one of a block's
+# 4 channels in one of two M-tiles (its N = 8), k one of the 64 pixels of the
+# 8×8 window of dy under the M-tile (K = 4 k16 steps). A point uses 36 of
+# them, the taps of its stuffing phase. W depends only on fd and on the
+# stuffing parity (ey, ex) of the M-tiles' first points, which is one per
+# launch, so it is built once per (fd, parity) and split into bf16 hi + lo;
+# dy is bf16 already, so hi·dy + lo·dy keep ~2⁻¹⁷ of the fp32 sum.
+UP_MMA_TILE = 4    # M-tile side
+UP_MMA_WINDOW = 8  # its dy window's side
+UP_MMA_K = UP_MMA_WINDOW * UP_MMA_WINDOW
+
+
+def mma_up(dtype: torch.dtype, fd: np.ndarray) -> bool:
+    """Whether the backward kernel's dy up pass runs on the tensor cores
+    (bf16 input, 12×12 fd) or on the CUDA cores (fp32, or a separable fd)."""
+    return dtype == torch.bfloat16 and fd.ndim == 2
+
+
+def mma_up_window_offsets() -> np.ndarray:
+    """``[UP_MMA_K, 2]``: the dy window pixel (row, column) of each of W's
+    columns in the kernel's order. Step s = k // 16 takes window rows 2s
+    (k % 16 < 8) and 2s + 1, column k % 8, so the two dy values of a B
+    register (k and k + 1, k even) are neighbours in a row of one channel."""
+    k = np.arange(UP_MMA_K)
+    step, kk = k // 16, k % 16
+    return np.stack([2 * step + kk // 8, kk % 8], axis=1)
+
+
+def mma_up_operand(fd: np.ndarray, ey: int, ex: int) -> np.ndarray:
+    """W ``[16, UP_MMA_K]`` (float64 holding float32 taps) for a 12×12 fd:
+    ``W[m, k] = fd[2·w − a − ey, 2·v − b − ex]`` for point m = 4·a + b of the
+    M-tile and window pixel (w, v), zero outside the taps. The window's
+    first row and column sit on the last even stuffed index at or before the
+    M-tile's first point, whose stuffing parity is (ey, ex). fd is used as
+    given: dy's up pass correlates with it."""
+    f = np.asarray(fd, np.float32).astype(np.float64)
+    td = f.shape[0]
+    assert f.shape == (td, td) and ey in (0, 1) and ex in (0, 1), (f.shape, ey, ex)
+    assert 2 * (UP_MMA_WINDOW - 1) >= UP_MMA_TILE + td - 2  # the last even offset a point reaches
+    wv = mma_up_window_offsets()
+    a, b = np.divmod(np.arange(UP_MMA_TILE * UP_MMA_TILE), UP_MMA_TILE)
+    ky = 2 * wv[None, :, 0] - a[:, None] - ey
+    kx = 2 * wv[None, :, 1] - b[:, None] - ex
+    inside = (ky >= 0) & (ky < td) & (kx >= 0) & (kx < td)
+    return np.where(inside, f[ky.clip(0, td - 1), kx.clip(0, td - 1)], 0.0)
+
+
+def mma_a_fragments(w: np.ndarray) -> np.ndarray:
+    """A ``[16, 16·S]`` matrix of bf16 bit patterns (uint16) as m16n8k16 A
+    fragments, ``[S, 32, 4]`` uint32: register r of lane l at step s holds
+    ``w[row, 16s + col]`` in its low half and ``w[row, 16s + col + 1]`` in
+    its high half, row = l // 4 + 8·(r % 2), col = 2·(l % 4) + 8·(r // 2)."""
+    steps = w.shape[1] // 16
+    assert w.shape == (16, 16 * steps) and w.dtype == np.uint16
+    lane, r = np.arange(32)[:, None], np.arange(4)[None, :]
+    row = lane // 4 + 8 * (r % 2)
+    col = 16 * np.arange(steps)[:, None, None] + 2 * (lane % 4) + 8 * (r // 2)
+    low, high = w[row, col].astype(np.uint32), w[row, col + 1].astype(np.uint32)
+    return low | (high << 16)
+
+
+_mma_up_operands: Dict[Tuple[bytes, int, int, str], torch.Tensor] = {}
+
+
+def mma_up_operand_on(fd: np.ndarray, ey: int, ex: int, device: torch.device) -> torch.Tensor:
+    """W of `mma_up_operand`, split into bf16 hi and lo, as the kernel's A
+    fragments: int32 ``[2 (hi, lo), 4 steps, 32 lanes, 4]`` on ``device``,
+    built once per (fd, parity, device)."""
+    key = (np.asarray(fd, np.float32).tobytes(), ey, ex, str(device))
+    if key not in _mma_up_operands:
+        frags = np.stack([mma_a_fragments(part)
+                          for part in bf16_split(mma_up_operand(fd, ey, ex))])
+        _mma_up_operands[key] = torch.from_numpy(frags.view(np.int32)).to(device)
+    return _mma_up_operands[key]
+
+
 def output_size(length: int, up: int, pad0: int, pad1: int, tu: int, td: int) -> int:
     """Output length of one axis: (in·up + p0 + p1 − (tu−1) − (td−1) + 1) // 2."""
     return (length * up + pad0 + pad1 - (tu - 1) - (td - 1) + 1) // 2
