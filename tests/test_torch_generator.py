@@ -108,6 +108,36 @@ def test_user_transform(pair):
     _check(got, ref, IMAGE_ATOL, "image with transform")
 
 
+def test_bf16_policy_image_matches_jax():
+    """The bf16 policy above one op: a slim SG3-R with ``use_bf16`` and
+    ``num_fp16_res=1`` (L0 in fp32, L1–L4 in bf16), against the JAX
+    generator on the CPU; both run each bf16 layer as a composition of bf16
+    ops. The image passes 4 bf16 layers of about 8 roundings each (input
+    cast, style scale, conv, demodulation, bias, up-FIR, activation,
+    down-FIR), each within 2⁻⁹ of its value; as independent errors that is
+    √32·2⁻⁹ ≈ 1.1 % of the signal per package, and the two packages round
+    apart where their sums run in another order, so the tolerance is twice
+    that, 2.2 % of max |ref|. bf16 visibly moves the port's image off its
+    fp32 image (``force_fp32``)."""
+    kw = dict(SLIM, use_bf16=True, num_fp16_res=1)
+    jmodel = JaxGenerator(jcfg.sg3_r_config(32, **kw))
+    variables = _perturb(jax.jit(jmodel.init)(jax.random.PRNGKey(0), jnp.zeros((1, 512))),
+                         seed=1)
+    tcfg_ = tcfg.sg3_r_config(32, **kw)
+    assert [s.use_bf16 for s in tcfg.build_synthesis_layout(tcfg_).layers] == \
+        [False, True, True, True, True]
+    tmodel = Generator(tcfg_, device="cpu")
+    load_jax_variables(tmodel, variables)
+    z = np.random.RandomState(2).randn(2, 512).astype(np.float32)
+    ref = np.asarray(jmodel.apply(variables, jnp.asarray(z), truncation_psi=0.7))
+    with torch.no_grad():
+        got, got32 = (tmodel(torch.from_numpy(z), truncation_psi=0.7, force_fp32=fp32).numpy()
+                      for fp32 in (False, True))
+    assert got.dtype == np.float32
+    _check(got, ref, 2 * np.sqrt(32) * 2 ** -9 * float(np.abs(ref).max()), "bf16 image")
+    assert np.abs(got - got32).max() > 10 * IMAGE_ATOL, "bf16 is not in effect"
+
+
 def test_update_emas_step(pair):
     jmodel, variables, tmodel, z = pair
     ref_img, updated = jmodel.apply(variables, jnp.asarray(z), update_emas=True,
