@@ -9,8 +9,9 @@ Phases (any failure exits non-zero before the result lines):
    the probe's tap chains and banded products) from the repository's
    sources, in parallel, and prints ptxas' registers, each kernel's shared
    memory per block and the tensor-core instructions in the SASS of the
-   forward kernel (its down pass on bf16 radial layers) and of the banded
-   kernel;
+   forward kernel (its down pass on bf16 radial layers), of the backward
+   kernel (its dy up pass on bf16 radial layers) and of the banded kernel;
+   it fails if one of the three has no bf16 tensor-core instruction;
 3. per layer: the kernel against the plain PyTorch version on each of the
    14 filtered-lrelu layers of SG3-R 1024 at full size, batch 1, in the
    layer's dtype (bf16 layers against the plain version in fp32 on the
@@ -38,7 +39,11 @@ Phases (any failure exits non-zero before the result lines):
 8. timing: one whole call each of `PTI.optimize_shared` (batch 4) and
    `PTI.optimize_batch` (2 images, final render included) for 5 steps, as
    s/step and s per image-step with peak memory; and each layer's backward
-   kernel, plain and bound times at batch 4;
+   kernel, plain and bound times at batch 4, with the route of its dy up
+   pass (tensor cores on bf16 radial layers, L5-L11, CUDA cores elsewhere)
+   and two bounds: every FLOP at the fp32 rate, and the tensor-core route's
+   useful dy-up FLOPs (36 taps per up-grid point) at the bf16 tensor-core
+   rate;
 9. the banded-FIR probe: its entry point at its defaults in fp32 and bf16
    (launch counts, outputs against the plain versions, the bf16 error
    between the two forms against that of their plain versions); then each
@@ -113,12 +118,13 @@ def flrelu_work(x_shape, out_shape, up: int, tu: int, td: int, radial: bool,
 
 def flrelu_bwd_work(x_shape, dy_shape, up: int, tu: int, td: int, radial: bool,
                     esize: int):
-    """(bytes, flops) the fused backward needs: dy and x read and dx written
-    once; on the backward up grid (x_len·up + tu − up per axis) the dy up
-    pass (36 real taps per point for the 12×12 radial fd, or two passes of
-    td/2 taps), the A recompute (the forward's up-pass count), 3 per point
-    for the mask, and the stride-up down pass (tu taps per dx sample per
-    axis), 2 FLOPs a tap."""
+    """(bytes, dy_up_flops, other_flops) the fused backward needs: dy and x
+    read and dx written once; on the backward up grid (x_len·up + tu − up per
+    axis) the dy up pass (36 real taps per point for the 12×12 radial fd, or
+    two passes of td/2 taps), and the rest: the A recompute (the forward's
+    up-pass count), 3 per point for the mask, and the stride-up down pass
+    (tu taps per dx sample per axis), 2 FLOPs a tap. The dy up pass counts
+    its useful taps only, not the zeros of the tensor-core route's W."""
     n, xh, xw, c = x_shape
     _, yh, _, _ = dy_shape
     gh, gw = xh * up + tu - up, xw * up + tu - up
@@ -127,7 +133,7 @@ def flrelu_bwd_work(x_shape, dy_shape, up: int, tu: int, td: int, radial: bool,
     a_up = 2 * (tu // up) * (xh * gw + gh * gw)
     down = 2 * tu * (gh * xw + xh * xw)
     nbytes = esize * (2 * math.prod(x_shape) + math.prod(dy_shape))
-    return nbytes, n * c * (dy_up + a_up + 3 * gh * gw + down)
+    return nbytes, n * c * dy_up, n * c * (a_up + 3 * gh * gw + down)
 
 
 def fir_work(shape, taps: int, esize: int, matrices: bool):
@@ -183,11 +189,12 @@ def main() -> int:
         for line in log.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"  ptxas {name}:", line.strip())
+    bwd_smem = libs["filtered_lrelu_bwd"].sg3_flrelu_bwd_smem_bytes
     for up in (2, 4):
         print(f"  dynamic shared memory per block, up {up}: forward "
               f"{libs['filtered_lrelu_fwd'].sg3_flrelu_fwd_smem_bytes(up)} B, backward "
-              f"{libs['filtered_lrelu_bwd'].sg3_flrelu_bwd_smem_bytes(up, 1)} B (radial fd), "
-              f"{libs['filtered_lrelu_bwd'].sg3_flrelu_bwd_smem_bytes(up, 0)} B (separable)")
+              f"{bwd_smem(up, 1, 1)} B (radial fd, bf16: tensor-core dy up pass), "
+              f"{bwd_smem(up, 1, 0)} B (radial fd, fp32), {bwd_smem(up, 0, 0)} B (separable)")
     qh, qw, _ = FIR_SHAPES[0]
     fir_out = (qh - FIR_TAPS + 1, qw - FIR_TAPS + 1)
     print(f"  dynamic shared memory per block, probe {FIR_TAPS} taps: fir_taps "
@@ -195,7 +202,7 @@ def main() -> int:
           f"[{qh}, {qw}] -> {list(fir_out)}: "
           f"{libs['fir_banded'].sg3_fir_banded_smem_bytes(qh, qw, *fir_out[::-1], 0)} B (fp32), "
           f"{libs['fir_banded'].sg3_fir_banded_smem_bytes(qh, qw, *fir_out[::-1], 1)} B (bf16)")
-    for name in ("filtered_lrelu_fwd", "fir_banded"):
+    for name in ("filtered_lrelu_fwd", "filtered_lrelu_bwd", "fir_banded"):
         hmma = cuda_build.sass_mma_counts(name)
         print(f"  sass {name}: tensor-core instructions {dict(hmma)} (mma.sync)"
               if hmma is not None else f"  sass {name}: cuobjdump not found, HMMA not counted")
@@ -477,7 +484,8 @@ def main() -> int:
         del result
     torch.cuda.empty_cache()
 
-    btot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
+    btot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, fp32_bound_ms=0.0, bytes_ms=0.0,
+                ops_ms=0.0)
     with torch.no_grad():
         for i, s in enumerate(layers):
             dy, x, b = bwd_inputs(s, 4, seed=300 + i)
@@ -486,10 +494,14 @@ def main() -> int:
                 err = check_bwd(s, dx[n:n + 1], dy[n:n + 1], x[n:n + 1], b,
                                 f"{s.name}, batch 4, image {n}")[0]
                 bwd_max_err = max(bwd_max_err, err)
-            nbytes, flops = flrelu_bwd_work(
+            nbytes, dy_up_flops, other_flops = flrelu_bwd_work(
                 tuple(x.shape), tuple(dy.shape), s.up_factor, len(s.up_filter),
                 s.down_filter.shape[0], s.down_filter.ndim == 2, x.element_size())
-            bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+            tensor_cores = flrelu_cuda.mma_up(x.dtype, s.down_filter)
+            flops = dy_up_flops + other_flops
+            bytes_ms, fp32_ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+            ops_ms = (other_flops / FP32_FLOPS + dy_up_flops / TC_FLOPS) * 1e3 if tensor_cores \
+                else fp32_ops_ms
             k_ms = time_ms(lambda: bwd_kernel_call(s, dy, x, b), 10)
 
             def plain_batch():
@@ -497,18 +509,22 @@ def main() -> int:
                     bwd_plain_call(s, dy[n:n + 1], x[n:n + 1], b)
 
             p_ms = time_ms(plain_batch, 2, warmup=1)
-            bound = max(bytes_ms, ops_ms)
+            bound, fp32_bound = max(bytes_ms, ops_ms), max(bytes_ms, fp32_ops_ms)
             for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", bound),
-                           ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
+                           ("fp32_bound_ms", fp32_bound), ("bytes_ms", bytes_ms),
+                           ("ops_ms", ops_ms)):
                 btot[key] += v
-            print(f"time bwd {s.name} {str(x.dtype)[6:]} batch 4: kernel {k_ms:.4f} ms, "
+            print(f"time bwd {s.name} {str(x.dtype)[6:]} batch 4, dy up pass on the "
+                  f"{'tensor cores' if tensor_cores else 'CUDA cores'}: kernel {k_ms:.4f} ms, "
                   f"plain {p_ms:.4f} ms, bound {bound:.4f} ms "
                   f"({'operations' if ops_ms > bytes_ms else 'bytes'}: "
-                  f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) {card}")
+                  f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP of which dy up pass "
+                  f"{dy_up_flops / 1e9:.2f}), all-fp32 bound {fp32_bound:.4f} ms {card}")
             del dy, x, b, dx
             torch.cuda.empty_cache()
     print(f"time bwd all 14 layers batch 4: kernel {btot['ms']:.4f} ms, plain "
-          f"{btot['plain_ms']:.4f} ms, bound {btot['bound_ms']:.4f} ms {card}")
+          f"{btot['plain_ms']:.4f} ms, bound {btot['bound_ms']:.4f} ms, all-fp32 bound "
+          f"{btot['fp32_bound_ms']:.4f} ms {card}")
 
     # 9. The banded-FIR probe: its entry point at its defaults, in fp32 and
     # bf16, is the path that launches the probe kernels.
@@ -630,7 +646,8 @@ def main() -> int:
         "name": "filtered_lrelu_bwd",
         "route": "cuda",
         "source": "stylegan3_editing_tpu_torch/ops/csrc/filtered_lrelu_bwd.cu",
-        "replaces": "stylegan3_editing_tpu/ops/pallas_flrelu.py:1023",
+        "replaces": "stylegan3_editing_tpu/ops/pallas_flrelu.py:1023 (_flrelu_bwd_kernel) "
+                    "and :1017 (_flrelu_bwd_kernel_mxu)",
         "launches": shared_launches["filtered_lrelu_bwd"] // shared_steps,
         "max_abs_err": bwd_max_err,
         "ms": btot["ms"],

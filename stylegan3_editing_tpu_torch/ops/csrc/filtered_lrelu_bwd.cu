@@ -32,11 +32,35 @@
 // kT/2 outputs, per thread from one register-resident run of inputs).
 // Device memory is touched as whole slices: a thread loads a pixel's 4
 // channels of x and of dy from the one or two aligned 16-byte chunks that
-// hold them (`load_slice`; element loads only at the ends of a tensor) and
-// stores a pixel's 4 channels of dx with one 8-byte (bf16) or 16-byte (fp32)
-// store where the slice is aligned. The grid's fastest index is the channel
-// group, so the blocks that share a 32-byte sector of x, dy or dx run
-// together and the sector is fetched once.
+// hold them (`load_slice_words`; element loads only at the ends of a tensor)
+// and stores a pixel's 4 channels of dx with one 8-byte (bf16) or 16-byte
+// (fp32) store where the slice is aligned. The grid's fastest index is the
+// channel group, so the blocks that share a 32-byte sector of x, dy or dx
+// run together and the sector is fetched once.
+//
+// On bf16 inputs with a radial fd (SG3-R's L5-L11) the dy up pass, 70-73 %
+// of the FMA, runs on the tensor cores (`mma_up`). Mapping: M = the 16
+// points of a 4x4 M-tile of the up grid, N = 8 = the block's 4 channels in
+// each of two M-tiles kHalf apart in the list of a tile's M-tiles (lanes
+// with gid / 4 = 0 or 1 take the first or the second), K = the 64 pixels of
+// the 8x8 dy window under an M-tile, 4 k16 steps of two window rows each.
+// Every M-tile of a launch starts on the same stuffing parity (its origin is
+// U*16*tile + 4*i - pp0), so W [16][64] (fd placed at each point's offset,
+// 36 taps per row) is one matrix per launch, built on the host
+// (flrelu_cuda.mma_up_operand) and passed as A fragments, lane by lane. dy
+// is bf16, so it is exact as an operand: only W is split, and hi.dy + lo.dy
+// (m16n8k16 mma.sync, fp32 sums) keep ~2^-17 of the fp32 result. dy stays
+// bf16 in shared memory, in planes [c][row][col], so a B register (two
+// neighbouring window pixels of one channel) is one aligned 32-bit load; the
+// plane stride (≡ 8 words mod 32) keeps a warp's loads on distinct banks.
+// Useful MACs per mma.sync: 16 points x 8 columns x 36 taps over 4 steps x
+// 2 products = 576 (of 2,048). At u = 4 a lane keeps W's 8 fragments (32
+// registers) for the whole pass; at u = 2 three blocks share an SM's
+// registers, so the pass reads them per step through L1. Shared memory per
+// block on these layers: 63,744 B at u = 2 (three blocks per SM), 179,584 B
+// at u = 4 (one block per SM, 1,024 threads). ptxas (CUDA 12.8): 56
+// registers at u = 4; at u = 2 the 40 that three blocks allow, with 76
+// bytes of spill stores.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC -o libflrelu_bwd.so filtered_lrelu_bwd.cu
@@ -46,6 +70,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "mma.cuh"  // mma_bf16
 
 namespace {
 
@@ -73,9 +99,11 @@ struct Taps {
 constexpr int pad_to(int v, int m, int r) { return v + ((r - v % m) % m + m) % m; }
 constexpr int max2(int a, int b) { return a > b ? a : b; }
 
-template <int U, int TU, int TD, bool RADIAL>
+template <int U, int TU, int TD, bool RADIAL, bool MMA>
 struct Shape {
     static constexpr int kThreads = U == 2 ? 512 : 1024;
+    static constexpr int kWarps = kThreads / 32;
+    static constexpr bool kMma = MMA;  // the dy up pass on the tensor cores
     static constexpr int kMinBlocks = U == 2 ? 3 : 1;  // blocks per SM the registers must allow
     static constexpr int kLog2U = U == 2 ? 1 : 2;
     static constexpr int kT = U == 4 && !RADIAL ? 8 : 16;  // dx tile side
@@ -98,12 +126,18 @@ struct Shape {
     static constexpr int kT1Pitch = pad_to(kSpan * kCg, 32, kCg); // W-upsampled row
     static constexpr int kMPitch = pad_to(kSpan * kCg, 32, kCg);  // up-grid row
     static constexpr int kDPitch = pad_to(kT * kCg, 32, kCg);     // W-downsampled row
+    // The tensor-core pass: bf16 dy planes [kCg][kInG][kInG], the plane
+    // stride ≡ 16 elements (8 words) mod 64; M-tiles per side of the up
+    // grid, and the distance between the two M-tiles of a task.
+    static constexpr int kPlane = pad_to(kInG * kInG, 64, 16);
+    static constexpr int kMTiles = (kSpan + 3) / 4;
+    static constexpr int kHalf = (kMTiles * kMTiles + 1) / 2;
     // Regions, in floats. buf0: the x tile (phases 1-2), then the mask and
-    // dA (3-5), then the dx tile (6). buf1: the dy tile (1-4). buf2: the
-    // W-upsampled rows (2-3, and 4 if separable), then the W-downsampled
-    // rows (5-6).
+    // dA (3-5), then the dx tile (6). buf1: the dy tile (1-4), fp32
+    // [kInG][kYPitch], or the bf16 planes. buf2: the W-upsampled rows (2-3,
+    // and 4 if separable), then the W-downsampled rows (5-6).
     static constexpr int kBuf0 = max2(max2(kSpan * kMPitch, kInA * kXPitch), kT * kT * kCg);
-    static constexpr int kBuf1 = kInG * kYPitch;
+    static constexpr int kBuf1 = MMA ? kCg * kPlane / 2 : kInG * kYPitch;
     static constexpr int kBuf2 = max2((RADIAL ? kInA : max2(kInA, kInG)) * kT1Pitch,
                                       kSpan * kDPitch);
     static constexpr size_t kSmemBytes = sizeof(float) * size_t(kBuf0 + kBuf1 + kBuf2);
@@ -111,19 +145,24 @@ struct Shape {
     static_assert(TU % U == 0 && TU <= kMaxTu && TD % 2 == 0 && TD <= kMaxTd, "tap counts");
     static_assert(kSpan % 2 == 0, "the radial G pass walks row pairs");
     static_assert(kT * kT <= kThreads, "one thread per dx pixel in the store");
+    static_assert(!MMA || (RADIAL && TD == 12 && kInG % 2 == 0 &&
+                           2 * (kMTiles - 1) + 8 <= kInG),
+                  "the tensor-core pass: 12x12 fd, pixel pairs, windows inside the dy tile");
     static_assert(kSmemBytes <= 232448, "a block may hold 227 KB of shared memory");
 };
 
-// A pixel's channel slice p[0 .. nc), nc <= 4, as floats, zero past nc. The
+// A pixel's channel slice p[0 .. nc), nc <= 4, as 32-bit words: two bf16
+// channel pairs (low half first) or four fp32 values, zero past nc. The
 // slice lies in one or two aligned 16-byte chunks of [lo, hi) (ragged channel
 // counts misalign it): the thread loads them and shifts the slice out in
 // registers, a word shift by 2 and by 1 (selects), then for bf16 a funnel
 // shift by 0 or 16 bits. A slice whose chunks would reach past either end of
 // the tensor loads element by element.
 template <typename T>
-__device__ __forceinline__ void load_slice(const T* p, int nc, const T* lo, const T* hi,
-                                           float (&f)[kCg]) {
+__device__ __forceinline__ void load_slice_words(const T* p, int nc, const T* lo, const T* hi,
+                                                 uint32_t (&out)[kCg * sizeof(T) / 4]) {
     constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+    constexpr int kWords = kCg * sizeof(T) / 4;
     const uintptr_t a = reinterpret_cast<uintptr_t>(p), base = a & ~uintptr_t(15);
     const int sh = int(a - base);  // bytes of the first chunk before the slice
     const bool two = sh + nc * int(sizeof(T)) > 16;
@@ -141,27 +180,41 @@ __device__ __forceinline__ void load_slice(const T* p, int nc, const T* lo, cons
 #pragma unroll
             for (int j = 0; j < 5; ++j) w[j] = w[j + 1];
         }
-        if constexpr (kBf16) {
 #pragma unroll
-            for (int k = 0; k < kCg / 2; ++k) {  // bf16 -> fp32 is a 16-bit shift
-                const uint32_t pair = __funnelshift_r(w[k], w[k + 1], 8 * (sh & 2));
-                f[2 * k] = __uint_as_float(pair << 16);
-                f[2 * k + 1] = __uint_as_float(pair & 0xffff0000u);
-            }
-        } else {
-#pragma unroll
-            for (int k = 0; k < kCg; ++k) f[k] = __uint_as_float(w[k]);
+        for (int k = 0; k < kWords; ++k) {
+            out[k] = kBf16 ? __funnelshift_r(w[k], w[k + 1], 8 * (sh & 2)) : w[k];
         }
-#pragma unroll
-        for (int k = 0; k < kCg; ++k) f[k] = k < nc ? f[k] : 0.f;
     } else {
 #pragma unroll
-        for (int k = 0; k < kCg; ++k) {
+        for (int k = 0; k < kWords; ++k) {
             if constexpr (kBf16) {
-                f[k] = k < nc ? __bfloat162float(p[k]) : 0.f;
+                out[k] = (2 * k < nc ? uint32_t(__bfloat16_as_ushort(p[2 * k])) : 0u) |
+                         (2 * k + 1 < nc ? uint32_t(__bfloat16_as_ushort(p[2 * k + 1])) << 16
+                                         : 0u);
             } else {
-                f[k] = k < nc ? p[k] : 0.f;
+                out[k] = k < nc ? __float_as_uint(p[k]) : 0u;
             }
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < kWords; ++k) {  // zero the channels past nc
+        const int first = kBf16 ? 2 * k : k;
+        out[k] &= first >= nc ? 0u : (kBf16 && first + 1 >= nc ? 0xffffu : 0xffffffffu);
+    }
+}
+
+// The same slice as floats (bf16 -> fp32 is a 16-bit shift).
+template <typename T>
+__device__ __forceinline__ void load_slice(const T* p, int nc, const T* lo, const T* hi,
+                                           float (&f)[kCg]) {
+    uint32_t w[kCg * sizeof(T) / 4];
+    load_slice_words(p, nc, lo, hi, w);
+#pragma unroll
+    for (int k = 0; k < kCg; ++k) {
+        if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+            f[k] = __uint_as_float(k % 2 ? w[k / 2] & 0xffff0000u : w[k / 2] << 16);
+        } else {
+            f[k] = __uint_as_float(w[k]);
         }
     }
 }
@@ -188,6 +241,93 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src, const float
         }
         *reinterpret_cast<float4*>(dst + row * PITCH + col * kCg) =
             make_float4(f[0], f[1], f[2], f[3]);
+    }
+}
+
+// The bf16 dy tile of the tensor-core pass into planes dst[c][row][col]
+// (KIN x KIN, plane stride PLANE elements), zeros past the tensor's edges:
+// one thread per pixel pair (col, col + 1), so each plane takes one 32-bit
+// store of the pair's two values.
+template <int THREADS, int KIN, int PLANE>
+__device__ __forceinline__ void load_tile_planes(const __nv_bfloat16* __restrict__ src,
+                                                 __nv_bfloat16* dst, int n, int h, int w, int c,
+                                                 int c0, int i0_y, int i0_x, int n_img) {
+    const int nc = min(kCg, c - c0);
+    const __nv_bfloat16* lo = src;
+    const __nv_bfloat16* hi = src + size_t(n_img) * h * w * c;
+    for (int p = threadIdx.x; p < KIN * KIN / 2; p += THREADS) {
+        const int col = 2 * (p % (KIN / 2)), row = p / (KIN / 2);
+        const int iy = i0_y + row;
+        uint32_t v[2][2] = {};  // [pixel][channel pair]
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            const int ix = i0_x + col + e;
+            if (iy >= 0 && iy < h && ix >= 0 && ix < w) {
+                load_slice_words(src + ((size_t(n) * h + iy) * w + ix) * c + c0, nc, lo, hi,
+                                 v[e]);
+            }
+        }
+        uint32_t* d = reinterpret_cast<uint32_t*>(dst + row * KIN + col);
+#pragma unroll
+        for (int k = 0; k < kCg / 2; ++k) {  // channels 2k (low halves) and 2k + 1
+            d[(2 * k) * (PLANE / 2)] = __byte_perm(v[0][k], v[1][k], 0x5410);
+            d[(2 * k + 1) * (PLANE / 2)] = __byte_perm(v[0][k], v[1][k], 0x7632);
+        }
+    }
+}
+
+// 4 on the tensor cores: buf0[i][j][c] *= G, G = W . dy per M-tile (see the
+// note at the top). ys: the dy planes; wfrag: W's hi and lo as A fragments,
+// [2][4 steps][32 lanes] x 4 words. Task t of a warp takes M-tiles t and
+// t + kHalf of the tile's kMTiles^2; a lane loads B for the M-tile of its
+// column (gid / 4) and updates the points of its D columns (tig / 2).
+template <typename S>
+__device__ __forceinline__ void mma_up(const __nv_bfloat16* ys, const uint4* __restrict__ wfrag,
+                                       float* buf0) {
+    constexpr int kTiles = S::kMTiles * S::kMTiles;
+    constexpr bool kWRegs = S::kThreads == 1024;  // u = 4: one block per SM, 64 registers
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int gid = lane >> 2, tig = lane & 3;
+    uint4 wr[kWRegs ? 8 : 1];
+    if constexpr (kWRegs) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) wr[i] = __ldg(wfrag + i * 32 + lane);
+    }
+    // B: channel gid % 4, window columns 2 tig and 2 tig + 1.
+    const __nv_bfloat16* yb = ys + (gid & 3) * S::kPlane + 2 * tig;
+    for (int task = warp; task < S::kHalf; task += S::kWarps) {
+        const int q = min(task + S::kHalf * (gid >> 2), kTiles - 1);
+        const int ty = q / S::kMTiles, tx = q - ty * S::kMTiles;
+        const __nv_bfloat16* yt = yb + 2 * ty * S::kInG + 2 * tx;
+        float dh[4] = {}, dl[4] = {};
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+            const uint32_t b[2] = {*reinterpret_cast<const uint32_t*>(yt + 2 * s * S::kInG),
+                                   *reinterpret_cast<const uint32_t*>(yt + (2 * s + 1) * S::kInG)};
+            const uint4 h4 = kWRegs ? wr[s] : __ldg(wfrag + s * 32 + lane);
+            const uint4 l4 = kWRegs ? wr[4 + s] : __ldg(wfrag + (4 + s) * 32 + lane);
+            const uint32_t ah[4] = {h4.x, h4.y, h4.z, h4.w}, al[4] = {l4.x, l4.y, l4.z, l4.w};
+            mma_bf16(dh, ah, b);
+            mma_bf16(dl, al, b);
+        }
+        // D rows gid, gid + 8: points (gid / 4 + 2h, gid % 4) of the M-tile;
+        // columns 2 tig, 2 tig + 1: channels 2 (tig % 2) and + 1 of M-tile tig / 2.
+        const int qd = task + S::kHalf * (tig >> 1);
+        if (qd < kTiles) {
+            const int i = 4 * (qd / S::kMTiles) + (gid >> 2);
+            const int j = 4 * (qd % S::kMTiles) + (gid & 3);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                if (i + 2 * h < S::kSpan && j < S::kSpan) {
+                    float2* m = reinterpret_cast<float2*>(
+                        buf0 + (i + 2 * h) * S::kMPitch + j * kCg + 2 * (tig & 1));
+                    float2 v = *m;
+                    v.x *= dh[2 * h] + dl[2 * h];
+                    v.y *= dh[2 * h + 1] + dl[2 * h + 1];
+                    *m = v;
+                }
+            }
+        }
     }
 }
 
@@ -255,17 +395,23 @@ __device__ __forceinline__ void down_run(const float* f, const float* src, int s
     }
 }
 
+// The shape of an instantiation: bf16 with a radial fd takes the tensor cores.
 template <typename T, int U, int TU, int TD, bool RADIAL>
-__global__ void __launch_bounds__((Shape<U, TU, TD, RADIAL>::kThreads),
-                                  (Shape<U, TU, TD, RADIAL>::kMinBlocks))
+using ShapeOf = Shape<U, TU, TD, RADIAL, RADIAL && std::is_same<T, __nv_bfloat16>::value>;
+
+template <typename T, int U, int TU, int TD, bool RADIAL>
+__global__ void __launch_bounds__((ShapeOf<T, U, TU, TD, RADIAL>::kThreads),
+                                  (ShapeOf<T, U, TU, TD, RADIAL>::kMinBlocks))
 flrelu_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ x,
-                  const float* __restrict__ bias, T* __restrict__ dx,
-                  const __grid_constant__ Geometry g, const __grid_constant__ Taps taps) {
-    using S = Shape<U, TU, TD, RADIAL>;
+                  const float* __restrict__ bias, const uint4* __restrict__ wfrag,
+                  T* __restrict__ dx, const __grid_constant__ Geometry g,
+                  const __grid_constant__ Taps taps) {
+    using S = ShapeOf<T, U, TU, TD, RADIAL>;
+    constexpr bool kMma = S::kMma;
     constexpr int kThreads = S::kThreads;
     extern __shared__ __align__(16) float smem[];
     float* buf0 = smem;                         // x tile; the mask, then dA; the dx tile
-    float* buf1 = smem + S::kBuf0;              // dy tile
+    float* buf1 = smem + S::kBuf0;              // dy tile (fp32, or kMma: bf16 planes)
     float* buf2 = smem + S::kBuf0 + S::kBuf1;   // W-upsampled rows, then W-downsampled rows
 
     const int tid = threadIdx.x;
@@ -290,8 +436,13 @@ flrelu_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ x,
     //    buf0, dy into buf1; the padding stays zero.
     load_tile<kThreads, S::kInA, S::kXPitch>(x, bias, buf0, n, g.h, g.w, g.c, c0, ia_y, ia_x,
                                              g.n);
-    load_tile<kThreads, S::kInG, S::kYPitch>(dy, static_cast<const float*>(nullptr), buf1, n,
-                                             g.yh, g.yw, g.c, c0, ig_y, ig_x, g.n);
+    if constexpr (kMma) {
+        load_tile_planes<kThreads, S::kInG, S::kPlane>(
+            dy, reinterpret_cast<__nv_bfloat16*>(buf1), n, g.yh, g.yw, g.c, c0, ig_y, ig_x, g.n);
+    } else {
+        load_tile<kThreads, S::kInG, S::kYPitch>(dy, static_cast<const float*>(nullptr), buf1, n,
+                                                 g.yh, g.yw, g.c, c0, ig_y, ig_x, g.n);
+    }
     __syncthreads();
 
     // 2. A: up-FIR along W into buf2[row][j][c]; lanes over (c, row).
@@ -327,7 +478,9 @@ flrelu_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ x,
     __syncthreads();
 
     // 4. G = x2 up-FIR of dy with fd (correlation); buf0 *= G.
-    if constexpr (RADIAL) {
+    if constexpr (kMma) {
+        mma_up<S>(reinterpret_cast<const __nv_bfloat16*>(buf1), wfrag, buf0);
+    } else if constexpr (RADIAL) {
         // Lanes over (c, row pair); each thread computes 8 samples of row
         // 2k and 8 of row 2k+1, so the row's tap phase is warp-uniform.
         for (int idx = tid; idx < (S::kSpan / 2) * S::kGroupsG * kCg; idx += kThreads) {
@@ -413,9 +566,9 @@ flrelu_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ x,
 }
 
 template <typename T, int U, int TU, int TD, bool RADIAL>
-int launch(const void* dy, const void* x, const void* bias, void* dx, const Geometry& g,
-           const Taps& taps, cudaStream_t stream) {
-    using S = Shape<U, TU, TD, RADIAL>;
+int launch(const void* dy, const void* x, const void* bias, const void* wfrag, void* dx,
+           const Geometry& g, const Taps& taps, cudaStream_t stream) {
+    using S = ShapeOf<T, U, TU, TD, RADIAL>;
     auto kernel = flrelu_bwd_kernel<T, U, TU, TD, RADIAL>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(S::kSmemBytes));
@@ -427,44 +580,57 @@ int launch(const void* dy, const void* x, const void* bias, void* dx, const Geom
     dim3 grid(unsigned((g.c + kCg - 1) / kCg), unsigned(tiles_h * tiles_w), unsigned(g.n));
     kernel<<<grid, S::kThreads, S::kSmemBytes, stream>>>(
         static_cast<const T*>(dy), static_cast<const T*>(x), static_cast<const float*>(bias),
-        static_cast<T*>(dx), geo, taps);
+        static_cast<const uint4*>(wfrag), static_cast<T*>(dx), geo, taps);
     return int(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch(const void* dy, const void* x, const void* bias, void* dx, const Geometry& g,
-             const Taps& taps, int up, int radial, cudaStream_t s) {
+int dispatch(const void* dy, const void* x, const void* bias, const void* wfrag, void* dx,
+             const Geometry& g, const Taps& taps, int up, int radial, cudaStream_t s) {
     if (up == 2) {
-        return radial ? launch<T, 2, 12, 12, true>(dy, x, bias, dx, g, taps, s)
-                      : launch<T, 2, 12, 12, false>(dy, x, bias, dx, g, taps, s);
+        return radial ? launch<T, 2, 12, 12, true>(dy, x, bias, wfrag, dx, g, taps, s)
+                      : launch<T, 2, 12, 12, false>(dy, x, bias, wfrag, dx, g, taps, s);
     }
-    return radial ? launch<T, 4, 24, 12, true>(dy, x, bias, dx, g, taps, s)
-                  : launch<T, 4, 24, 12, false>(dy, x, bias, dx, g, taps, s);
+    return radial ? launch<T, 4, 24, 12, true>(dy, x, bias, wfrag, dx, g, taps, s)
+                  : launch<T, 4, 24, 12, false>(dy, x, bias, wfrag, dx, g, taps, s);
+}
+
+template <typename T>
+size_t smem_bytes(int up, int radial) {
+    if (up == 2) {
+        return radial ? ShapeOf<T, 2, 12, 12, true>::kSmemBytes
+                      : ShapeOf<T, 2, 12, 12, false>::kSmemBytes;
+    }
+    return radial ? ShapeOf<T, 4, 24, 12, true>::kSmemBytes
+                  : ShapeOf<T, 4, 24, 12, false>::kSmemBytes;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of one block at up factor 2 or 4, radial fd or not.
-size_t sg3_flrelu_bwd_smem_bytes(int up, int radial) {
-    if (up == 2) {
-        return radial ? Shape<2, 12, 12, true>::kSmemBytes : Shape<2, 12, 12, false>::kSmemBytes;
-    }
-    return radial ? Shape<4, 24, 12, true>::kSmemBytes : Shape<4, 24, 12, false>::kSmemBytes;
+// Dynamic shared memory of one block at up factor 2 or 4, radial fd or not,
+// fp32 (bf16 = 0) or bf16 input.
+size_t sg3_flrelu_bwd_smem_bytes(int up, int radial, int bf16) {
+    return bf16 ? smem_bytes<__nv_bfloat16>(up, radial) : smem_bytes<float>(up, radial);
 }
 
 // dy, x, dx: NHWC device tensors of one dtype, 0 = float32, 1 = bfloat16.
 // bias: float32 [c] on the device (the values the forward added). fu, fd:
 // host float32 taps as given (fu 1-D; fd 1-D, or 2-D row-major when radial).
-// Supported: up 2 with 12 fu taps or up 4 with 24, and 12 fd taps per axis.
-// Returns the cudaError_t of the launch (0 on success).
+// wfrag: for bf16 with a radial fd, the tensor-core dy up pass's operand W
+// as A fragments, int32 [2 (hi, lo)][4][32][4] on the device, 16-byte
+// aligned, for the stuffing parity (ppy0 % 2, ppx0 % 2)
+// (flrelu_cuda.mma_up_operand_on); otherwise unused. Supported: up 2 with 12
+// fu taps or up 4 with 24, and 12 fd taps per axis. Returns the cudaError_t
+// of the launch (0 on success).
 int sg3_flrelu_bwd(const void* dy, const void* x, const void* bias, const float* fu,
-                   const float* fd, void* dx, int dtype, int n, int h, int w, int c,
-                   int yh, int yw, int up, int tu, int td, int radial, int ppy0, int ppx0,
-                   float gain, float slope, float clamp, void* stream) {
+                   const float* fd, const void* wfrag, void* dx, int dtype, int n, int h, int w,
+                   int c, int yh, int yw, int up, int tu, int td, int radial, int ppy0,
+                   int ppx0, float gain, float slope, float clamp, void* stream) {
     if (!((up == 2 && tu == 12) || (up == 4 && tu == 24)) || td != 12 ||
-        (dtype != 0 && dtype != 1)) {
+        (dtype != 0 && dtype != 1) ||
+        (dtype == 1 && radial && (wfrag == nullptr || uintptr_t(wfrag) % 16 != 0))) {
         return int(cudaErrorInvalidValue);
     }
     Geometry g{n, h, w, c, yh, yw, ppy0, ppx0, gain, slope, clamp,
@@ -476,8 +642,8 @@ int sg3_flrelu_bwd(const void* dy, const void* x, const void* bias, const float*
     }
     for (int i = 0; i < (radial ? td * td : td); ++i) taps.fd[i] = fd[i];
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return dtype == 0 ? dispatch<float>(dy, x, bias, dx, g, taps, up, radial, s)
-                      : dispatch<__nv_bfloat16>(dy, x, bias, dx, g, taps, up, radial, s);
+    return dtype == 0 ? dispatch<float>(dy, x, bias, wfrag, dx, g, taps, up, radial, s)
+                      : dispatch<__nv_bfloat16>(dy, x, bias, wfrag, dx, g, taps, up, radial, s);
 }
 
 }  // extern "C"

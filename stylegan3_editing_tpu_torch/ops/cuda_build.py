@@ -45,8 +45,8 @@ KERNELS: Dict[str, Kernel] = {
         "sg3_flrelu_fwd": (_I, [_P] * 6 + [_I] * 13 + [_F] * 3 + [_P]),
         "sg3_flrelu_fwd_smem_bytes": (_SIZE, [_I])}),
     "filtered_lrelu_bwd": Kernel(_CSRC / "filtered_lrelu_bwd.cu", {
-        "sg3_flrelu_bwd": (_I, [_P] * 6 + [_I] * 13 + [_F] * 3 + [_P]),
-        "sg3_flrelu_bwd_smem_bytes": (_SIZE, [_I, _I])}),
+        "sg3_flrelu_bwd": (_I, [_P] * 7 + [_I] * 13 + [_F] * 3 + [_P]),
+        "sg3_flrelu_bwd_smem_bytes": (_SIZE, [_I] * 3)}),
     "fir_taps": Kernel(_CSRC / "fir_taps.cu", {
         "sg3_fir_taps": (_I, [_P] * 4 + [_I] * 6 + [_P]),
         "sg3_fir_taps_smem_bytes": (_SIZE, [_I])}),

@@ -290,8 +290,10 @@ def filtered_lrelu_bwd_cuda(
     """Launch the backward kernel: dx of `filtered_lrelu_cuda` for the
     gradient ``dy`` of its output, recomputing the pre-activation from the
     forward's input ``x`` and bias ``b``. Both CUDA, contiguous NHWC, of one
-    dtype (fp32 or bf16); dx comes in that dtype. Raises on any input the
-    kernel does not take.
+    dtype (fp32 or bf16); dx comes in that dtype. On bf16 with a 12×12 fd
+    dy's up pass runs on the tensor cores, with W from `mma_up_operand_on`
+    for the launch's stuffing parity. Raises on any input the kernel does
+    not take.
     """
     for name, t in (("dy", dy), ("x", x)):
         if t.device.type != "cuda":
@@ -321,12 +323,14 @@ def filtered_lrelu_bwd_cuda(
     ppx0 = backward_padding(w, yw, up, px0, tu, td)[0]
     fu_c = np.ascontiguousarray(fu, np.float32)
     fd_c = np.ascontiguousarray(fd, np.float32)
+    wmma = (mma_up_operand_on(fd, ppy0 % 2, ppx0 % 2, x.device).data_ptr()
+            if mma_up(x.dtype, fd) else None)
 
     lib = build()["filtered_lrelu_bwd"]
     dx = torch.empty_like(x)
     err = lib.sg3_flrelu_bwd(
         dy.data_ptr(), x.data_ptr(), bias.data_ptr(), fu_c.ctypes.data, fd_c.ctypes.data,
-        dx.data_ptr(), 0 if x.dtype == torch.float32 else 1,
+        wmma, dx.data_ptr(), 0 if x.dtype == torch.float32 else 1,
         n, h, w, c, yh, yw, up, tu, td, int(fd.ndim == 2), ppy0, ppx0,
         float(gain), float(slope), math.inf if clamp is None else float(clamp),
         torch.cuda.current_stream(x.device).cuda_stream)

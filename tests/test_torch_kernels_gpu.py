@@ -89,6 +89,16 @@ def test_flrelu_forward_sass_holds_bf16_tensor_core_instructions(cuda_device):
 
 
 @pytest.mark.gpu
+def test_flrelu_backward_sass_holds_bf16_tensor_core_instructions(cuda_device):
+    """The bf16 radial instantiations' dy up pass is m16n8k16 bf16 mma.sync."""
+    flrelu_cuda.build()
+    counts = cuda_build.sass_mma_counts("filtered_lrelu_bwd")
+    if counts is None:
+        pytest.skip("cuobjdump not found")
+    assert counts["HMMA.16816.F32.BF16"] > 0, counts
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("op", ["modulated_conv2d_3x3", "alexnet_Conv2d"])
 def test_convs_are_full_fp32_under_pytorchs_tf32_default(cuda_device, op):
     """With PyTorch's default (cuDNN may use TF32), the port's fp32 convs on
