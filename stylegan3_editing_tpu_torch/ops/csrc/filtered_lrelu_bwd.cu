@@ -19,10 +19,10 @@
 // would take 84^2 * 8 * 4 B = 226 KB of the 227 KB a block may have. Halving
 // the tile to 8 instead would keep 8 channels but recompute a 52^2 up grid
 // for 32^2 of output, 2.6x the work (the first version did; PERF.md has both
-// versions' times). Blocks take 72 KB (u = 2, three per SM, 512 threads
-// each) or 205 KB (u = 4 radial, one per SM, 1024 threads), so an SM keeps
-// 32-48 warps in flight; a separable fd at u = 4 needs one more 84-wide
-// buffer, so there the tile is 8 wide.
+// versions' times). On the CUDA-core route blocks take 72 KB (u = 2, three
+// per SM, 512 threads each) or 205 KB (u = 4 radial, one per SM, 1024
+// threads), so an SM keeps 32-48 warps in flight; a separable fd at u = 4
+// needs one more 84-wide buffer, so there the tile is 8 wide.
 //
 // Bound on the card: bytes(dy + x + dx) / 3.35 TB/s against its fp32
 // operations on the CUDA cores (the dy up pass, the A recompute, the mask and
@@ -55,12 +55,13 @@
 // plane stride (≡ 8 words mod 32) keeps a warp's loads on distinct banks.
 // Useful MACs per mma.sync: 16 points x 8 columns x 36 taps over 4 steps x
 // 2 products = 576 (of 2,048). At u = 4 a lane keeps W's 8 fragments (32
-// registers) for the whole pass; at u = 2 three blocks share an SM's
-// registers, so the pass reads them per step through L1. Shared memory per
-// block on these layers: 63,744 B at u = 2 (three blocks per SM), 179,584 B
-// at u = 4 (one block per SM, 1,024 threads). ptxas (CUDA 12.8): 56
-// registers at u = 4; at u = 2 the 40 that three blocks allow, with 76
-// bytes of spill stores.
+// registers) for the whole pass; at u = 2 the pass reads them per step
+// through L1. Shared memory per block on these layers: 63,744 B at u = 2,
+// 179,584 B at u = 4 (one block per SM, 1,024 threads). At u = 2 the launch
+// bounds allow two blocks per SM, not the three that shared memory would:
+// ptxas (CUDA 12.8) then gives 61 registers and no spill, where the 40 of
+// three blocks spilled 76 bytes and ran 14-17 % slower (PERF.md). At u = 4
+// it gives 56.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC -o libflrelu_bwd.so filtered_lrelu_bwd.cu
@@ -104,7 +105,9 @@ struct Shape {
     static constexpr int kThreads = U == 2 ? 512 : 1024;
     static constexpr int kWarps = kThreads / 32;
     static constexpr bool kMma = MMA;  // the dy up pass on the tensor cores
-    static constexpr int kMinBlocks = U == 2 ? 3 : 1;  // blocks per SM the registers must allow
+    // Blocks per SM the registers must allow: at u = 2 the tensor-core pass
+    // needs more than the 40 of three blocks, which spilled and ran slower.
+    static constexpr int kMinBlocks = U == 2 ? (MMA ? 2 : 3) : 1;
     static constexpr int kLog2U = U == 2 ? 1 : 2;
     static constexpr int kT = U == 4 && !RADIAL ? 8 : 16;  // dx tile side
     static constexpr int kR = kT / 2;                   // dx outputs per thread in a down pass
