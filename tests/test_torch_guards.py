@@ -126,6 +126,20 @@ def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
     assert '"ok": true' not in out.stdout
 
 
+def test_bwd_versions_script_needs_a_card(tmp_path):
+    """The backward-versions timing script raises before it builds anything
+    when there is no card, and rejects an order with an unknown label."""
+    from stylegan3_editing_tpu_torch.scripts import bwd_versions
+    src = tmp_path / "filtered_lrelu_bwd.cu"
+    src.write_text("")
+    with pytest.raises(AssertionError):
+        bwd_versions.main([f"a={src}", "--order", "a,b"])
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bwd_versions.main([f"a={src}"])
+
+
 def test_fir_kernel_wrappers_refuse_cpu_tensors():
     p, taps = torch.zeros((20, 21, 8)), hann_taps(4)
     with pytest.raises(ValueError, match="CUDA"):
