@@ -4,33 +4,73 @@ Entry points run on the CUDA card unless the caller asks for the CPU. With
 no card and no explicit ``device="cpu"`` they raise: nothing carries on
 quietly on the CPU. A tensor's device also decides between a hand-written
 kernel and its plain version (`kernel_or_plain`). Every convolution of the
-port goes through `conv2d`, which keeps cuDNN in full fp32.
+port goes through `conv2d`, which keeps cuDNN in full fp32, forward and
+backward.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import List, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 DeviceLike = Union[None, str, torch.device]
+IntPair = Union[int, Sequence[int]]
+
+
+def _fp32_cudnn():
+    """cuDNN without TF32 inside the block, the caller's other flags kept:
+    `torch.backends.cudnn.flags` would otherwise reset them to its defaults
+    (``enabled=False`` among them)."""
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                       deterministic=cudnn.deterministic, allow_tf32=False)
+
+
+def _pair(v: IntPair) -> List[int]:
+    return [int(v)] * 2 if isinstance(v, int) else [int(a) for a in v]
+
+
+class _Conv2d(torch.autograd.Function):
+    """`F.conv2d` whose forward and backward both run under `_fp32_cudnn`.
+    Autograd's own backward of `F.conv2d` reads the flags when it runs,
+    inside the caller's ``backward()``, where TF32 is PyTorch's default."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride, padding, dilation, groups):
+        ctx.save_for_backward(x, weight)
+        ctx.conf = (stride, padding, dilation, groups, bias is not None)
+        with _fp32_cudnn():
+            return F.conv2d(x, weight, bias, stride, padding, dilation, groups)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        stride, padding, dilation, groups, has_bias = ctx.conf
+        want = ctx.needs_input_grad
+        with _fp32_cudnn():
+            dx, dw, db = torch.ops.aten.convolution_backward(
+                dy, x, weight, [weight.shape[0]] if has_bias else None, stride, padding,
+                dilation, False, [0, 0], groups, [want[0], want[1], has_bias and want[2]])
+        return dx, dw, db, None, None, None, None
 
 
 def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
-           **kwargs) -> torch.Tensor:
-    """`F.conv2d` with cuDNN held to full fp32 for the call.
+           stride: IntPair = 1, padding: IntPair = 0, dilation: IntPair = 1,
+           groups: int = 1) -> torch.Tensor:
+    """`F.conv2d` (numeric padding only) with cuDNN held to full fp32 for
+    the call and for its gradients.
 
     PyTorch lets cuDNN run fp32 convolutions in TF32 by default
     (``torch.backends.cudnn.allow_tf32``), which keeps about three decimal
-    digits. The caller's cuDNN settings come back after the call; the
-    others (enabled, benchmark, deterministic) are passed through, since
-    `torch.backends.cudnn.flags` would otherwise reset them to its defaults.
+    digits. The caller's cuDNN settings come back after each call. The
+    gradient is not differentiable again (no double backward).
     """
-    cudnn = torch.backends.cudnn
-    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                     deterministic=cudnn.deterministic, allow_tf32=False):
-        return F.conv2d(x, weight, bias, **kwargs)
+    return _Conv2d.apply(x, weight, bias, _pair(stride), _pair(padding), _pair(dilation),
+                         int(groups))
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

@@ -179,39 +179,92 @@ def test_fir_dispatch_sends_cpu_tensors_to_the_plain_versions():
 
 
 def _conv_calls():
+    """Each conv path of the port on inputs that need gradients: the output
+    and the leaves."""
     rng = np.random.RandomState(3)
-    x = torch.from_numpy(rng.randn(2, 9, 10, 4).astype(np.float32))
-    return {
-        "modulated_conv2d_3x3": lambda: modulated_conv2d(
-            x, torch.from_numpy(rng.randn(3, 3, 4, 5).astype(np.float32)),
-            torch.from_numpy(rng.randn(2, 4).astype(np.float32)), padding=1),
-        "alexnet_Conv2d": lambda: Conv2d(4, 6, 3, padding=1,
-                                         generator=torch.Generator().manual_seed(0))(x),
-        "upfirdn2d": lambda: upfirdn2d(x, hann_taps(4), up=2, padding=3),
-    }
+
+    def leaf(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).requires_grad_()
+
+    def modulated():
+        x, w, s = leaf(2, 9, 10, 4), leaf(3, 3, 4, 5), leaf(2, 4)
+        return modulated_conv2d(x, w, s, padding=1), [x, w, s]
+
+    def alexnet():
+        x = leaf(2, 9, 10, 4)
+        conv = Conv2d(4, 6, 3, stride=2, padding=1, generator=torch.Generator().manual_seed(0))
+        return conv(x), [x, conv.kernel, conv.bias]
+
+    def fir():
+        x = leaf(2, 9, 10, 4)
+        return upfirdn2d(x, hann_taps(4), up=2, down=2, padding=3), [x]
+
+    return {"modulated_conv2d_3x3": modulated, "alexnet_Conv2d": alexnet, "upfirdn2d": fir}
 
 
 @pytest.mark.parametrize("op", sorted(_conv_calls()))
-def test_convs_run_without_tf32_and_restore_the_callers_flags(op, monkeypatch):
-    """Every cuDNN conv of the port sees TF32 off and the caller's other
-    cuDNN flags (``flags()`` would reset them to its defaults); the caller's
-    TF32 setting (PyTorch's default: allowed) is back after the call."""
+def test_convs_run_without_tf32_and_restore_the_callers_flags(op):
+    """Every cuDNN conv of the port, forward and backward, sees TF32 off and
+    the caller's other cuDNN flags (``flags()`` would reset them to its
+    defaults); the caller's TF32 setting (PyTorch's default: allowed) is
+    back after the call and after ``backward()``. The backward counts too:
+    autograd runs it inside the caller's ``backward()``, under the caller's
+    flags, unless the port sets them there as well."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
     cudnn = torch.backends.cudnn
+    aten = torch.ops.aten
     seen = []
-    conv2d = torch.nn.functional.conv2d
 
-    def recording_conv2d(*args, **kwargs):
-        seen.append((cudnn.allow_tf32, cudnn.enabled, cudnn.benchmark, cudnn.deterministic))
-        return conv2d(*args, **kwargs)
+    class Recorder(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in (aten.convolution.default, aten.convolution_backward.default):
+                seen.append((func, (cudnn.allow_tf32, cudnn.enabled, cudnn.benchmark,
+                                    cudnn.deterministic)))
+            return func(*args, **(kwargs or {}))
 
-    monkeypatch.setattr(torch.nn.functional, "conv2d", recording_conv2d)
-    call = _conv_calls()[op]
-    with cudnn.flags(enabled=True, benchmark=True, deterministic=True, allow_tf32=True):
-        out = call()
-        assert (cudnn.allow_tf32, cudnn.enabled, cudnn.benchmark, cudnn.deterministic) == \
-            (True, True, True, True)
-    assert seen and all(s == (False, True, True, True) for s in seen), seen
-    assert torch.isfinite(out).all()
+    flags = (True, True, True, True)
+    with cudnn.flags(enabled=True, benchmark=True, deterministic=True, allow_tf32=True), \
+            Recorder():
+        out, leaves = _conv_calls()[op]()
+        assert (cudnn.allow_tf32, cudnn.enabled, cudnn.benchmark, cudnn.deterministic) == flags
+        out.square().sum().backward()
+        assert (cudnn.allow_tf32, cudnn.enabled, cudnn.benchmark, cudnn.deterministic) == flags
+    assert {f for f, _ in seen} == {aten.convolution.default, aten.convolution_backward.default}
+    assert all(s == (False, True, True, True) for _, s in seen), seen
+    assert torch.isfinite(out).all() and all(torch.isfinite(t.grad).all() for t in leaves)
+
+
+@pytest.mark.parametrize("case", [
+    dict(stride=1, padding=1, groups=1, bias=True),
+    dict(stride=2, padding=(0, 2), groups=1, bias=False),
+    dict(stride=(1, 2), padding=0, groups=4, bias=True),
+    dict(stride=1, padding=2, dilation=2, groups=2, bias=False),
+])
+def test_conv2d_gradients_match_pytorchs(case):
+    """`device.conv2d`'s own backward gives `F.conv2d`'s output and its
+    gradients for x, the weight and the bias, in float64, to 1e-12; and it
+    runs without a graph too (``no_grad``)."""
+    from stylegan3_editing_tpu_torch.device import conv2d
+
+    rng = np.random.RandomState(11)
+    case = dict(case)
+    groups, has_bias = case["groups"], case.pop("bias")
+    x = torch.from_numpy(rng.randn(2, 8, 9, 11))
+    w = torch.from_numpy(rng.randn(6 if groups == 2 else 8, 8 // groups, 3, 3))
+    b = torch.from_numpy(rng.randn(w.shape[0])) if has_bias else None
+    g = None
+    grads = []
+    for fn in (conv2d, torch.nn.functional.conv2d):
+        leaves = [t.clone().requires_grad_() for t in (x, w, b) if t is not None]
+        out = fn(*leaves[:2], leaves[2] if has_bias else None, **case)
+        g = torch.from_numpy(rng.randn(*out.shape)) if g is None else g
+        (out * g).sum().backward()
+        grads.append([out.detach()] + [t.grad for t in leaves])
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(got, ref, atol=1e-12, rtol=1e-12)
+    with torch.no_grad():
+        torch.testing.assert_close(conv2d(x, w, b, **case), grads[1][0], atol=1e-12, rtol=1e-12)
 
 
 def test_library_key_covers_included_headers(tmp_path, monkeypatch):
@@ -228,3 +281,18 @@ def test_library_key_covers_included_headers(tmp_path, monkeypatch):
     assert cuda_build.library_path("probe") != before
     assert [p.name for p in cuda_build.source_files(cuda_build.KERNELS["fir_banded"].source)] \
         == ["fir_banded.cu", "mma.cuh"]
+
+
+def test_version_libraries_are_keyed_by_their_own_source(tmp_path):
+    """Another version of a kernel's source (as `build_versions` builds it)
+    gets its own library key, from its text and the headers beside it; a
+    copy of the registry's source and headers gets the registry's key."""
+    src = cuda_build.KERNELS["filtered_lrelu_bwd"].source
+    for path in cuda_build.source_files(src):
+        (tmp_path / path.name).write_bytes(path.read_bytes())
+    copy = tmp_path / src.name
+    assert cuda_build.library_path("filtered_lrelu_bwd", copy) == \
+        cuda_build.library_path("filtered_lrelu_bwd")
+    (tmp_path / "mma.cuh").write_text((tmp_path / "mma.cuh").read_text() + "// edit\n")
+    assert cuda_build.library_path("filtered_lrelu_bwd", copy) != \
+        cuda_build.library_path("filtered_lrelu_bwd")

@@ -102,36 +102,49 @@ def test_flrelu_backward_sass_holds_bf16_tensor_core_instructions(cuda_device):
 @pytest.mark.parametrize("op", ["modulated_conv2d_3x3", "alexnet_Conv2d"])
 def test_convs_are_full_fp32_under_pytorchs_tf32_default(cuda_device, op):
     """With PyTorch's default (cuDNN may use TF32), the port's fp32 convs on
-    the card agree with the same op in float64 on the CPU to 1e-5 of max
-    |ref|: 576 products per output, so TF32's 2^-11 operands would miss it
-    by one to two orders. The fixture's setting comes back after the test."""
+    the card, and their gradients (x and the weights; the styles of the
+    modulated conv; the bias of `Conv2d`), agree with the same op in float64
+    on the CPU to 1e-5 of max |ref| each: 576 to 2048 products per output,
+    so TF32's 2^-11 operands would miss it by one to two orders. The
+    backward runs inside ``backward()``, after the forward call has
+    returned. The fixture's setting comes back after the test."""
     rng = np.random.RandomState(13)
-    x = rng.randn(2, 32, 32, 64)
+    x, g = rng.randn(2, 32, 32, 64), rng.randn(2, 32, 32, 64)
     if op == "modulated_conv2d_3x3":
         w, s = rng.randn(3, 3, 64, 64), rng.randn(2, 64)
 
         def run(device, dtype):
-            return modulated_conv2d(*(torch.from_numpy(a).to(device, dtype) for a in (x, w, s)),
-                                    padding=1)
+            leaves = [torch.from_numpy(a).to(device, dtype).requires_grad_() for a in (x, w, s)]
+            out = modulated_conv2d(*leaves, padding=1)
+            (out * torch.from_numpy(g).to(device, dtype)).sum().backward()
+            return [out] + [t.grad for t in leaves]
     else:
         conv = Conv2d(64, 64, 3, padding=1, generator=torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            conv.bias.copy_(torch.from_numpy(rng.randn(64)))
 
         def run(device, dtype):
-            return conv.to(device, dtype)(torch.from_numpy(x).to(device, dtype))
-    with torch.no_grad():
-        ref = run("cpu", torch.float64)
+            conv.to(device, dtype).zero_grad(set_to_none=True)
+            xd = torch.from_numpy(x).to(device, dtype).requires_grad_()
+            out = conv(xd)
+            (out * torch.from_numpy(g).to(device, dtype)).sum().backward()
+            return [out, xd.grad, conv.kernel.grad, conv.bias.grad]
+    ref = run("cpu", torch.float64)
     cudnn = torch.backends.cudnn
     fixture_setting = cudnn.allow_tf32
     cudnn.allow_tf32 = True  # PyTorch's default
-    with torch.no_grad():
+    try:
         got = run(cuda_device, torch.float32)
-    torch.cuda.synchronize()
-    still_allowed = cudnn.allow_tf32
-    cudnn.allow_tf32 = fixture_setting
+        torch.cuda.synchronize()
+        still_allowed = cudnn.allow_tf32
+    finally:
+        cudnn.allow_tf32 = fixture_setting
     assert still_allowed, "the conv did not restore the caller's TF32 setting"
-    assert got.dtype == torch.float32 and got.shape == ref.shape
-    err = float((got.double().cpu() - ref).abs().max())
-    assert err <= 1e-5 * float(ref.abs().max()), err
+    for i, (a, r) in enumerate(zip(got, ref)):
+        assert a.dtype == torch.float32 and a.shape == r.shape, i
+        err = float((a.detach().double().cpu() - r.detach()).abs().max())
+        top = float(r.detach().abs().max())
+        assert err <= 1e-5 * top, (i, err, top)
 
 
 @pytest.mark.gpu
