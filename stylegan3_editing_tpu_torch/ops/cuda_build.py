@@ -9,13 +9,16 @@ the local headers it includes (``#include "..."``, such as ``mma.cuh``) and
 the flags, written to a temporary file and moved into place atomically,
 then loaded with ``ctypes``. ptxas' report (registers, spills) is kept in
 `build_log`; `sass_mma_counts` reads the tensor-core instructions of a built
-library. The wrappers (`flrelu_cuda`, `fir_cuda`) count their launches in
-`launches`. There is no fallback: a failed build raises.
+library. `build_versions` and `swapped` build other versions of a source and
+launch them through the same wrapper, to compare versions on one card. The
+wrappers (`flrelu_cuda`, `fir_cuda`) count their launches in `launches`.
+There is no fallback: a failed build raises.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -24,7 +27,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -87,14 +90,47 @@ def source_files(source: Path) -> List[Path]:
     return files
 
 
-def library_path(name: str) -> Path:
-    """Where the shared library of kernel ``name`` is (or will be) built:
-    keyed by its source, its local headers and the flags."""
+def library_path(name: str, source: Optional[Path] = None) -> Path:
+    """Where the shared library of kernel ``name`` (or of another version of
+    its source, ``source``) is (or will be) built: keyed by the source, its
+    local headers and the flags."""
     digest = hashlib.sha256()
-    for path in source_files(KERNELS[name].source):
+    for path in source_files(source or KERNELS[name].source):
         digest.update(path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return _BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
+
+
+def _compile(jobs: Dict[str, Tuple[Path, Path]]) -> None:
+    """Run ``nvcc`` on every ``label: (source, library)`` at once, each into
+    a temporary file moved into place when it is whole; nvcc's output goes
+    to ``build_log[label]``."""
+    procs = {}
+    for label, (source, path) in jobs.items():
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+        os.close(fd)
+        procs[label] = (tmp, path, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for label, (tmp, path, proc) in procs.items():
+        build_log[label] = proc.communicate()[0]
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"{label}: nvcc failed ({proc.returncode}):\n{build_log[label]}")
+        else:
+            os.replace(tmp, path)  # atomic: concurrent builders see a whole file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def _load(name: str, path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for fn, (restype, argtypes) in KERNELS[name].functions.items():
+        getattr(lib, fn).restype = restype
+        getattr(lib, fn).argtypes = argtypes
+    return lib
 
 
 def build() -> Dict[str, ctypes.CDLL]:
@@ -103,32 +139,33 @@ def build() -> Dict[str, ctypes.CDLL]:
     if _libs:
         return _libs
     paths = {name: library_path(name) for name in KERNELS}
-    procs = {}
-    for name, path in paths.items():
-        if not path.exists():
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-            os.close(fd)
-            procs[name] = (tmp, subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(KERNELS[name].source)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for name, (tmp, proc) in procs.items():
-        build_log[name] = proc.communicate()[0]
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{build_log[name]}")
-        else:
-            os.replace(tmp, paths[name])  # atomic: concurrent builders see a whole file
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    libs = {name: ctypes.CDLL(str(path)) for name, path in paths.items()}
-    for name, lib in libs.items():
-        for fn, (restype, argtypes) in KERNELS[name].functions.items():
-            getattr(lib, fn).restype = restype
-            getattr(lib, fn).argtypes = argtypes
-    _libs.update(libs)
+    _compile({name: (KERNELS[name].source, path) for name, path in paths.items()
+              if not path.exists()})
+    _libs.update({name: _load(name, path) for name, path in paths.items()})
     return _libs
+
+
+def build_versions(name: str, sources: Dict[str, Path]) -> Dict[str, ctypes.CDLL]:
+    """Libraries of other versions of kernel ``name``'s source, by label,
+    all compiled at once (nvcc's output in ``build_log[label]``), with the
+    registry's signatures: a version must keep the kernel's C interface.
+    Each takes its local headers from its own directory."""
+    paths = {label: library_path(name, Path(src)) for label, src in sources.items()}
+    _compile({label: (Path(sources[label]), path) for label, path in paths.items()
+              if not path.exists()})
+    return {label: _load(name, path) for label, path in paths.items()}
+
+
+@contextlib.contextmanager
+def swapped(name: str, lib: ctypes.CDLL) -> Iterator[None]:
+    """Inside the block, kernel ``name``'s wrapper launches ``lib`` (from
+    `build_versions`) in place of the built library."""
+    libs = build()
+    kept, libs[name] = libs[name], lib
+    try:
+        yield
+    finally:
+        libs[name] = kept
 
 
 def sass_mma_counts(name: str) -> Optional[collections.Counter]:

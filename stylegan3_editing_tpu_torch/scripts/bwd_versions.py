@@ -4,30 +4,26 @@
         parent=path/a.cu new=path/b.cu [--order parent,new,new,parent] \\
         [--layers L10,L11] [--iters 10]
 
-Each ``LABEL=PATH`` names a version of `ops/csrc/filtered_lrelu_bwd.cu`; its
-local headers come from PATH's directory. All versions are built at once
-with the port's nvcc flags into ``_build/versions/``, and ptxas' registers
-and spills are printed. Then, on each filtered-lrelu layer of SG3-R 1024 at
-batch 4 (random inputs from seed 300, in the layer's dtype), every version's
-dx is checked on images 0 and 3 against `filtered_lrelu_bwd_ref` at the
-tolerance of `chip_smoke.py` phase 6, compared with the first version's,
-and timed with CUDA events (``--iters`` calls after two) in ``--order``.
-Versions are compared inside one call only, in mirrored order, since the
-card's speed drifts within a call.
-
-A version whose source names the tensor-core operand (``wfrag``) takes it
-as the pointer after fd, as `flrelu_cuda.filtered_lrelu_bwd_cuda` passes
-it; earlier versions take six pointers.
+Each ``LABEL=PATH`` names a version of `ops/csrc/filtered_lrelu_bwd.cu` with
+its C interface; its local headers come from PATH's directory. All versions
+are built at once by `cuda_build.build_versions`, and ptxas' registers and
+spills are printed. Then, on each filtered-lrelu layer of SG3-R 1024 at
+batch 4 (random inputs from seed 300, in the layer's dtype), every version
+is launched through `flrelu_cuda.filtered_lrelu_bwd_cuda` with its library
+swapped in (`cuda_build.swapped`): its dx is checked on images 0 and 3
+against `filtered_lrelu_bwd_ref` at the tolerance of `chip_smoke.py` phase
+6, compared with the first version's, and timed with CUDA events
+(``--iters`` calls after two) in ``--order``. Versions are compared inside
+one call only, in mirrored order, since the card's speed drifts within a
+call.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
-import math
 import subprocess
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -36,35 +32,6 @@ from ..device import resolve_device
 from ..models.sg3 import build_synthesis_layout, sg3_r_config
 from ..ops import cuda_build, flrelu_cuda
 from ..ops.filtered_lrelu import filtered_lrelu_bwd_ref
-
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-
-
-def build_versions(sources: Dict[str, Path]) -> Dict[str, Tuple[ctypes.CDLL, bool]]:
-    """Compile every version at once and print ptxas' report; each version's
-    library, and whether it takes the tensor-core operand."""
-    out_dir = Path(cuda_build.__file__).resolve().parents[1] / "_build" / "versions"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for label, src in sources.items():
-        lib = out_dir / f"lib_{label}.so"
-        procs[label] = (lib, subprocess.Popen(
-            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I", str(src.parent), "-o", str(lib),
-             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for label, (path, proc) in procs.items():
-        log = proc.communicate()[0]
-        for line in log.splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"{label} ptxas: {line.strip()}")
-        if proc.returncode != 0:
-            raise RuntimeError(f"{label}: nvcc failed ({proc.returncode}):\n{log}")
-        lib = ctypes.CDLL(str(path))
-        takes_w = "wfrag" in sources[label].read_text()
-        lib.sg3_flrelu_bwd.restype = _I
-        lib.sg3_flrelu_bwd.argtypes = [_P] * (7 if takes_w else 6) + [_I] * 13 + [_F] * 3 + [_P]
-        libs[label] = (lib, takes_w)
-    return libs
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
@@ -81,7 +48,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     order = args.order.split(",") if args.order else list(sources) + list(sources)[::-1]
     assert set(order) <= set(sources), (order, list(sources))
     dev = resolve_device("cuda")
-    libs = build_versions(sources)
+    libs = cuda_build.build_versions("filtered_lrelu_bwd", sources)
+    for label in libs:
+        for line in cuda_build.build_log.get(label, "(built earlier)").splitlines():
+            if "Used" in line or "spill" in line or "built" in line:
+                print(f"{label} ptxas: {line.strip()}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(f"[{smi}] torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -98,29 +69,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
         b = torch.randn((s.out_channels,), generator=gen, device=dev)
         dy = torch.randn((4, s.out_size[1], s.out_size[0], s.out_channels), generator=gen,
                          device=dev).to(dt)
-        n, h, w, c = x.shape
-        tu, td = len(s.up_filter), s.down_filter.shape[0]
-        ppy0 = flrelu_cuda.backward_padding(h, dy.shape[1], s.up_factor, s.padding[2], tu, td)[0]
-        ppx0 = flrelu_cuda.backward_padding(w, dy.shape[2], s.up_factor, s.padding[0], tu, td)[0]
-        fu = np.ascontiguousarray(s.up_filter, np.float32)
-        fd = np.ascontiguousarray(s.down_filter, np.float32)
-        wm = (flrelu_cuda.mma_up_operand_on(s.down_filter, ppy0 % 2, ppx0 % 2, dev).data_ptr()
-              if flrelu_cuda.mma_up(dt, s.down_filter) else None)
 
-        def call(label: str, dx: torch.Tensor) -> None:
-            lib, takes_w = libs[label]
-            ptrs = [dy.data_ptr(), x.data_ptr(), b.data_ptr(), fu.ctypes.data, fd.ctypes.data]
-            err = lib.sg3_flrelu_bwd(
-                *ptrs, *([wm] if takes_w else []), dx.data_ptr(), int(dt == torch.bfloat16),
-                n, h, w, c, dy.shape[1], dy.shape[2], s.up_factor, tu, td, int(fd.ndim == 2),
-                ppy0, ppx0, math.sqrt(2), 0.2, float(s.conv_clamp),
-                torch.cuda.current_stream().cuda_stream)
-            if err != 0:
-                raise RuntimeError(f"{label} on {s.name}: CUDA error {err}")
+        def call(label: str) -> torch.Tensor:
+            with cuda_build.swapped("filtered_lrelu_bwd", libs[label]):
+                return flrelu_cuda.filtered_lrelu_bwd_cuda(
+                    dy, x, s.up_filter, s.down_filter, b, s.up_factor, s.padding,
+                    2 ** 0.5, 0.2, s.conv_clamp)
 
-        outs = {label: torch.empty_like(x) for label in libs}
-        for label, dx in outs.items():
-            call(label, dx)
+        outs = {label: call(label) for label in libs}
         torch.cuda.synchronize()
         checks = []
         atol, rtol = (1e-3, 2 ** -8) if s.use_bf16 else (1e-4, 1e-4)
@@ -138,11 +94,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
         times = []
         for i, label in enumerate(order):
             for _ in range(2):
-                call(label, outs[label])
+                call(label)
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()
             for _ in range(args.iters):
-                call(label, outs[label])
+                call(label)
             end.record()
             torch.cuda.synchronize()
             times.append(start.elapsed_time(end) / args.iters)
