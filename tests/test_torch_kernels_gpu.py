@@ -13,6 +13,8 @@ installed (`tests/conftest.py` imports JAX; skip it there):
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu --noconftest -p no:cacheprovider
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -124,11 +126,12 @@ def test_convs_are_full_fp32_under_pytorchs_tf32_default(cuda_device, op):
             conv.bias.copy_(torch.from_numpy(rng.randn(64)))
 
         def run(device, dtype):
-            conv.to(device, dtype).zero_grad(set_to_none=True)
+            # A copy each: `Module.to` would convert the grads of an earlier run in place.
+            c = copy.deepcopy(conv).to(device, dtype)
             xd = torch.from_numpy(x).to(device, dtype).requires_grad_()
-            out = conv(xd)
+            out = c(xd)
             (out * torch.from_numpy(g).to(device, dtype)).sum().backward()
-            return [out, xd.grad, conv.kernel.grad, conv.bias.grad]
+            return [out, xd.grad, c.kernel.grad, c.bias.grad]
     ref = run("cpu", torch.float64)
     cudnn = torch.backends.cudnn
     fixture_setting = cudnn.allow_tf32
