@@ -125,9 +125,13 @@ def _compile(jobs: Dict[str, Tuple[Path, Path]]) -> None:
         raise RuntimeError("\n".join(failed))
 
 
-def _load(name: str, path: Path) -> ctypes.CDLL:
+def _load(name: str, path: Path, require: bool = True) -> ctypes.CDLL:
+    """Load a library and set the registry's signatures; a function the
+    library lacks raises, unless ``require`` is False (an older version)."""
     lib = ctypes.CDLL(str(path))
     for fn, (restype, argtypes) in KERNELS[name].functions.items():
+        if not require and not hasattr(lib, fn):
+            continue
         getattr(lib, fn).restype = restype
         getattr(lib, fn).argtypes = argtypes
     return lib
@@ -148,12 +152,13 @@ def build() -> Dict[str, ctypes.CDLL]:
 def build_versions(name: str, sources: Dict[str, Path]) -> Dict[str, ctypes.CDLL]:
     """Libraries of other versions of kernel ``name``'s source, by label,
     all compiled at once (nvcc's output in ``build_log[label]``), with the
-    registry's signatures: a version must keep the kernel's C interface.
-    Each takes its local headers from its own directory."""
+    registry's signatures: a version must keep the kernel's launch entry,
+    and may lack entries added after it (an older version). Each takes its
+    local headers from its own directory."""
     paths = {label: library_path(name, Path(src)) for label, src in sources.items()}
     _compile({label: (Path(sources[label]), path) for label, path in paths.items()
               if not path.exists()})
-    return {label: _load(name, path) for label, path in paths.items()}
+    return {label: _load(name, path, require=False) for label, path in paths.items()}
 
 
 @contextlib.contextmanager
