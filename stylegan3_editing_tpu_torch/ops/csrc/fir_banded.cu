@@ -17,6 +17,16 @@
 // - the second: t is split into tf32 hi + lo (tf32 alone keeps ~2^-11, a
 //   bf16-rounded t 2^-9: neither is the TPU kernel's function); Mh is exact
 //   in tf32 when it holds bf16 values (two MMAs), else it is split too (three).
+// fp32 matrices are split once, as they are staged: shared memory holds their
+// tf32 hi and lo planes, and the inner loops split only P and t.
+//
+// The band's all-zero blocks are skipped. While a matrix is staged, the block
+// records for each m-tile the first and last K step that holds a non-zero
+// entry (shared-memory atomicMin / atomicMax), and both products run over
+// that range only. Dense matrices run every step; for a finite plane the
+// result is the dense product's, since the skipped terms are exact zeros.
+// Unlike the TPU kernel's dense products, a non-finite value of P under a
+// skipped block is not spread into o.
 // One block owns one group of kCg = 8 channels (the MMA's N). The group's
 // whole fp32 t, [Qh][J][8], stays in shared memory between the two products
 // (158 KB at the probe's 76 x 76 -> 65 x 65), so P is read and o written
@@ -31,9 +41,8 @@
 //
 // Bound on the card: at 12 taps the useful work is ~50 FLOP per output
 // against 6-8 bytes, so bytes(in + out) / 3.35 TB/s. The tensor cores also
-// multiply the band's zeros (the matrices are dense) and the split terms, ~8x
-// the useful work per split, still under their rate. wgmma, TMA and skipping
-// the band's zero blocks are left for later work.
+// multiply the zeros inside the non-zero K steps and the split terms, still
+// under their rate. wgmma and TMA are left for later work.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC -o libfir_banded.so fir_banded.cu
@@ -65,6 +74,7 @@ struct Layout {
     int kt2, ldh;  // second: K steps over Qh, Mh pitch (floats)
     int pitch;     // t's row pitch (floats); a row q holds [J][kCg]
     size_t t_bytes, m_bytes;
+    size_t mw_plane, mh_plane;  // elements of one plane (fp32: hi, then lo)
 };
 
 struct Args {
@@ -85,8 +95,11 @@ Layout layout(int qh, int qw, int j, int i) {
     l.ldh = pad_to(l.kt2 * 8, 8, 4);
     l.pitch = pad_to(j * kCg, 32, 8);
     l.t_bytes = sizeof(float) * size_t(qh) * l.pitch;
-    const size_t mw = sizeof(T) * size_t(l.mt) * 16 * l.ldw;
-    const size_t mh = sizeof(float) * size_t(l.mt) * 16 * l.ldh;
+    constexpr size_t planes = sizeof(T) == 4 ? 2 : 1;  // fp32: tf32 hi and lo
+    l.mw_plane = size_t(l.mt) * 16 * l.ldw;
+    l.mh_plane = size_t(l.mt) * 16 * l.ldh;
+    const size_t mw = planes * sizeof(T) * l.mw_plane;
+    const size_t mh = planes * sizeof(float) * l.mh_plane;
     l.m_bytes = mw > mh ? mw : mh;
     return l;
 }
@@ -111,31 +124,62 @@ __device__ __forceinline__ void load_a(const float* a, int ld, int gid, int tig,
 }
 
 // acc[mt] (rows 16 mt .. 16 mt + 15 of the output) += A * B for the 8-wide
-// K step whose B fragment is (b0, b1), with A the fp32 matrix at `a` (pitch
-// ld, already offset to the K step); A split in three MMAs unless it is exact
-// in tf32.
+// K step ks whose B fragment is (b0, b1), for the m-tiles whose K range
+// [lo[mt], hi[mt]] holds ks. A is the matrix's tf32 hi plane at `a` (pitch ld,
+// already offset to the K step) and, where it is not exact in tf32
+// (kSplitA), its lo plane `plane` elements further: three MMAs, else two.
 template <bool kSplitA, int MT>
 __device__ __forceinline__ void tf32_step(float (&acc)[MT][4], const float* a, int ld,
-                                          int gid, int tig, float b0, float b1) {
+                                          size_t plane, int gid, int tig, float b0, float b1,
+                                          int ks, const int (&lo)[MT], const int (&hi)[MT]) {
     uint32_t bh[2], bl[2];
     split(b0, bh[0], bl[0]);
     split(b1, bh[1], bl[1]);
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
+        if (ks < lo[mt] || ks > hi[mt]) continue;
         float av[4];
         load_a(a + mt * 16 * ld, ld, gid, tig, av);
-        uint32_t ah[4], al[4];
+        uint32_t ah[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            if constexpr (kSplitA) {
-                split(av[e], ah[e], al[e]);
-            } else {
-                ah[e] = __float_as_uint(av[e]);  // already a tf32 value
-            }
+        for (int e = 0; e < 4; ++e) ah[e] = __float_as_uint(av[e]);
+        if constexpr (kSplitA) {
+            float lv[4];
+            load_a(a + plane + mt * 16 * ld, ld, gid, tig, lv);
+            uint32_t al[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) al[e] = __float_as_uint(lv[e]);
+            mma_tf32(acc[mt], al, bh);
         }
-        if constexpr (kSplitA) mma_tf32(acc[mt], al, bh);
         mma_tf32(acc[mt], ah, bl);
         mma_tf32(acc[mt], ah, bh);
+    }
+}
+
+// Stages matrix m [rows, cols] (row pitch cols) as [MT * 16][ld] planes at s,
+// zero-padded to kt whole K steps of width kk: as fp32 tf32 hi and lo planes
+// (`plane` elements apart) where kSplit, else as U. Records each m-tile's first
+// and last K step with a non-zero entry in lo[mt] / hi[mt], which must hold
+// INT_MAX / -1 before (NaN counts as non-zero).
+template <typename U, bool kSplit, typename T, int MT>
+__device__ __forceinline__ void stage_matrix(U* s, const T* m, int rows, int cols, int ld,
+                                             size_t plane, int kt, int kk, int* lo, int* hi) {
+    const int width = kt * kk;
+    for (int idx = threadIdx.x; idx < MT * 16 * width; idx += kThreads) {
+        const int r = idx / width, k = idx - r * width;
+        const float v = r < rows && k < cols ? to_f32(m[size_t(r) * cols + k]) : 0.f;
+        if (!(v == 0.f)) {
+            atomicMin(lo + r / 16, k / kk);
+            atomicMax(hi + r / 16, k / kk);
+        }
+        if constexpr (kSplit) {
+            uint32_t vh, vl;
+            split(v, vh, vl);
+            s[r * ld + k] = __uint_as_float(vh);
+            s[plane + r * ld + k] = __uint_as_float(vl);
+        } else {
+            s[r * ld + k] = from_f32<U>(v);
+        }
     }
 }
 
@@ -148,23 +192,31 @@ fir_banded_kernel(const T* __restrict__ p, const T* __restrict__ mw,
     constexpr int kK = kStepK<T>, kMaxKt = kMaxQw / kK;
     extern __shared__ __align__(16) unsigned char smem[];
     float* t_s = reinterpret_cast<float*>(smem);                 // [qh][pitch]
-    T* mw_s = reinterpret_cast<T*>(smem + a.l.t_bytes);          // [MT * 16][ldw]
+    T* mw_s = reinterpret_cast<T*>(smem + a.l.t_bytes);          // [MT * 16][ldw] (x2 fp32)
     float* mh_s = reinterpret_cast<float*>(smem + a.l.t_bytes);  // [MT * 16][ldh], mw_s's space
+    __shared__ int k_lo[2][MT], k_hi[2][MT];  // per product and m-tile: its non-zero K steps
     const Layout& l = a.l;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int gid = lane >> 2, tig = lane & 3;
     const int c0 = blockIdx.x * kCg;
 
-    // 0. Mw into shared memory, zero-padded to whole tiles.
-    {
-        const int rows = MT * 16, cols = l.kt1 * kK;
-        for (int idx = threadIdx.x; idx < rows * cols; idx += kThreads) {
-            const int r = idx / cols, k = idx - r * cols;
-            mw_s[r * l.ldw + k] =
-                r < a.j && k < a.qw ? mw[size_t(r) * a.qw + k] : from_f32<T>(0.f);
-        }
+    if (threadIdx.x < 2 * MT) {
+        (&k_lo[0][0])[threadIdx.x] = 0x7fffffff;
+        (&k_hi[0][0])[threadIdx.x] = -1;
     }
     __syncthreads();
+    // 0. Mw into shared memory, zero-padded to whole tiles (fp32: split).
+    stage_matrix<T, kF32, T, MT>(mw_s, mw, a.j, a.qw, l.ldw, l.mw_plane, l.kt1, kK,
+                                 k_lo[0], k_hi[0]);
+    __syncthreads();
+    int lo[MT], hi[MT], ks_lo = 0x7fffffff, ks_hi = -1;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+        lo[mt] = k_lo[0][mt];
+        hi[mt] = k_hi[0][mt];
+        ks_lo = min(ks_lo, lo[mt]);
+        ks_hi = max(ks_hi, hi[mt]);
+    }
 
     // 1. t[q] = Mw . P[q]: a warp per row q; lane (gid, tig) loads the B
     //    elements of channel c0 + gid at K indices of tig.
@@ -177,7 +229,8 @@ fir_banded_kernel(const T* __restrict__ p, const T* __restrict__ mw,
         T bv[kMaxKt][4];  // fp32: K indices tig, tig + 4; bf16: 2 tig + {0, 1, 8, 9}
 #pragma unroll
         for (int ks = 0; ks < kMaxKt; ++ks) {
-            if (ks >= l.kt1) break;
+            if (ks > ks_hi) break;
+            if (ks < ks_lo) continue;
             const int k = ks * kK;
             if constexpr (kF32) {
                 bv[ks][0] = ld_p(k + tig);
@@ -192,15 +245,18 @@ fir_banded_kernel(const T* __restrict__ p, const T* __restrict__ mw,
         float acc[MT][4] = {};
 #pragma unroll
         for (int ks = 0; ks < kMaxKt; ++ks) {
-            if (ks >= l.kt1) break;
+            if (ks > ks_hi) break;
+            if (ks < ks_lo) continue;
             const T* a_tile = mw_s + ks * kK;
             if constexpr (kF32) {
-                tf32_step<true>(acc, a_tile, l.ldw, gid, tig, bv[ks][0], bv[ks][1]);
+                tf32_step<true>(acc, a_tile, l.ldw, l.mw_plane, gid, tig, bv[ks][0], bv[ks][1],
+                                ks, lo, hi);
             } else {
                 const uint32_t b[2] = {pack_bf16(bv[ks][0], bv[ks][1]),
                                        pack_bf16(bv[ks][2], bv[ks][3])};
 #pragma unroll
                 for (int mt = 0; mt < MT; ++mt) {
+                    if (ks < lo[mt] || ks > hi[mt]) continue;
                     const T* r = a_tile + (mt * 16 + gid) * l.ldw + 2 * tig;
                     const uint32_t av[4] = {
                         *reinterpret_cast<const uint32_t*>(r),
@@ -226,26 +282,31 @@ fir_banded_kernel(const T* __restrict__ p, const T* __restrict__ mw,
     }
     __syncthreads();  // t is whole; Mw is no longer needed
 
-    // 2. Mh into shared memory as fp32 (exact for bf16), zero-padded.
-    {
-        const int rows = MT * 16, cols = l.kt2 * 8;
-        for (int idx = threadIdx.x; idx < rows * cols; idx += kThreads) {
-            const int r = idx / cols, k = idx - r * cols;
-            mh_s[r * l.ldh + k] = r < a.i && k < a.qh ? to_f32(mh[size_t(r) * a.qh + k]) : 0.f;
-        }
-    }
+    // 2. Mh into shared memory as fp32 (exact for bf16; fp32: split), zero-padded.
+    stage_matrix<float, kF32, T, MT>(mh_s, mh, a.i, a.qh, l.ldh, l.mh_plane, l.kt2, 8,
+                                     k_lo[1], k_hi[1]);
     __syncthreads();
+    ks_lo = 0x7fffffff;
+    ks_hi = -1;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+        lo[mt] = k_lo[1][mt];
+        hi[mt] = k_hi[1][mt];
+        ks_lo = min(ks_lo, lo[mt]);
+        ks_hi = max(ks_hi, hi[mt]);
+    }
 
     // 3. o = Mh . t: a warp per column j of t (its 8 channels are the N tile).
     const bool even_c = (a.c & 1) == 0;
     for (int j = warp; j < a.j; j += kWarps) {
         const float* tcol = t_s + j * kCg + gid;
         float acc[MT][4] = {};
-        for (int ks = 0; ks < l.kt2; ++ks) {
+        for (int ks = ks_lo; ks <= ks_hi; ++ks) {
             const int k = ks * 8 + tig;
             const float b0 = k < a.qh ? tcol[k * l.pitch] : 0.f;
             const float b1 = k + 4 < a.qh ? tcol[(k + 4) * l.pitch] : 0.f;
-            tf32_step<kF32>(acc, mh_s + ks * 8, l.ldh, gid, tig, b0, b1);
+            tf32_step<kF32>(acc, mh_s + ks * 8, l.ldh, l.mh_plane, gid, tig, b0, b1, ks, lo,
+                            hi);
         }
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
@@ -266,33 +327,60 @@ fir_banded_kernel(const T* __restrict__ p, const T* __restrict__ mw,
     }
 }
 
-template <typename T, int MT>
-int launch(const void* p, const void* mw, const void* mh, void* out, const Args& a,
-           cudaStream_t stream) {
-    auto kernel = fir_banded_kernel<T, MT>;
-    const size_t smem = a.l.t_bytes + a.l.m_bytes;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (err != cudaSuccess) return int(err);
-    kernel<<<dim3(unsigned((a.c + kCg - 1) / kCg)), kThreads, smem, stream>>>(
-        static_cast<const T*>(p), static_cast<const T*>(mw), static_cast<const T*>(mh),
-        static_cast<float*>(out), a);
-    return int(cudaGetLastError());
+// f(std::integral_constant<int, MT>) for the m-tile count mt (1..kMaxMt).
+template <typename F>
+int by_mt(int mt, F&& f) {
+    switch (mt) {
+        case 1: return f(std::integral_constant<int, 1>{});
+        case 2: return f(std::integral_constant<int, 2>{});
+        case 3: return f(std::integral_constant<int, 3>{});
+        case 4: return f(std::integral_constant<int, 4>{});
+        case 5: return f(std::integral_constant<int, 5>{});
+        case 6: return f(std::integral_constant<int, 6>{});
+        case 7: return f(std::integral_constant<int, 7>{});
+        default: return f(std::integral_constant<int, 8>{});
+    }
 }
 
 template <typename T>
-int dispatch(const void* p, const void* mw, const void* mh, void* out, const Args& a,
-             cudaStream_t s) {
-    switch (a.l.mt) {
-        case 1: return launch<T, 1>(p, mw, mh, out, a, s);
-        case 2: return launch<T, 2>(p, mw, mh, out, a, s);
-        case 3: return launch<T, 3>(p, mw, mh, out, a, s);
-        case 4: return launch<T, 4>(p, mw, mh, out, a, s);
-        case 5: return launch<T, 5>(p, mw, mh, out, a, s);
-        case 6: return launch<T, 6>(p, mw, mh, out, a, s);
-        case 7: return launch<T, 7>(p, mw, mh, out, a, s);
-        default: return launch<T, 8>(p, mw, mh, out, a, s);
-    }
+int launch(const void* p, const void* mw, const void* mh, void* out, const Args& a,
+           cudaStream_t stream) {
+    const size_t smem = a.l.t_bytes + a.l.m_bytes;
+    return by_mt(a.l.mt, [&](auto mt) {
+        auto kernel = fir_banded_kernel<T, decltype(mt)::value>;
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+        if (err != cudaSuccess) return int(err);
+        kernel<<<dim3(unsigned((a.c + kCg - 1) / kCg)), kThreads, smem, stream>>>(
+            static_cast<const T*>(p), static_cast<const T*>(mw), static_cast<const T*>(mh),
+            static_cast<float*>(out), a);
+        return int(cudaGetLastError());
+    });
+}
+
+template <typename T>
+int blocks_per_sm(const Args& a) {
+    const size_t smem = a.l.t_bytes + a.l.m_bytes;
+    return by_mt(a.l.mt, [&](auto mt) {
+        auto kernel = fir_banded_kernel<T, decltype(mt)::value>;
+        int n = 0;
+        cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+        if (err == cudaSuccess) {
+            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, smem);
+        }
+        return err == cudaSuccess ? n : -int(err);
+    });
+}
+
+bool valid(int qh, int qw, int c, int j, int i, int dtype) {
+    return qh >= 1 && qw >= 1 && qw <= kMaxQw && c >= 1 && j >= 1 && i >= 1 &&
+           j <= 16 * kMaxMt && i <= 16 * kMaxMt && (dtype == 0 || dtype == 1);
+}
+
+Args args(int qh, int qw, int c, int j, int i, int dtype) {
+    return Args{qh, qw, c, j, i,
+                dtype == 0 ? layout<float>(qh, qw, j, i) : layout<__nv_bfloat16>(qh, qw, j, i)};
 }
 
 }  // namespace
@@ -301,8 +389,17 @@ extern "C" {
 
 // Dynamic shared memory of one block, dtype 0 = float32, 1 = bfloat16.
 size_t sg3_fir_banded_smem_bytes(int qh, int qw, int j, int i, int dtype) {
-    const Layout l = dtype == 0 ? layout<float>(qh, qw, j, i) : layout<__nv_bfloat16>(qh, qw, j, i);
+    const Layout l = args(qh, qw, 1, j, i, dtype).l;
     return l.t_bytes + l.m_bytes;
+}
+
+// Blocks of the launch for these shapes that the card keeps resident on one
+// SM at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus the
+// cudaError_t; shapes the launch refuses give -cudaErrorInvalidValue.
+int sg3_fir_banded_blocks_per_sm(int qh, int qw, int j, int i, int dtype) {
+    if (!valid(qh, qw, 1, j, i, dtype)) return -int(cudaErrorInvalidValue);
+    const Args a = args(qh, qw, 1, j, i, dtype);
+    return dtype == 0 ? blocks_per_sm<float>(a) : blocks_per_sm<__nv_bfloat16>(a);
 }
 
 // p [qh, qw, c], mw [j, qw], mh [i, qh]: contiguous device tensors of one
@@ -311,16 +408,11 @@ size_t sg3_fir_banded_smem_bytes(int qh, int qw, int j, int i, int dtype) {
 // success).
 int sg3_fir_banded(const void* p, const void* mw, const void* mh, void* out, int dtype,
                    int qh, int qw, int c, int j, int i, void* stream) {
-    if (qh < 1 || qw < 1 || qw > kMaxQw || c < 1 || j < 1 || i < 1 || j > 16 * kMaxMt ||
-        i > 16 * kMaxMt ||
-        (dtype != 0 && dtype != 1)) {
-        return int(cudaErrorInvalidValue);
-    }
-    Args a{qh, qw, c, j, i, dtype == 0 ? layout<float>(qh, qw, j, i)
-                                       : layout<__nv_bfloat16>(qh, qw, j, i)};
+    if (!valid(qh, qw, c, j, i, dtype)) return int(cudaErrorInvalidValue);
+    const Args a = args(qh, qw, c, j, i, dtype);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return dtype == 0 ? dispatch<float>(p, mw, mh, out, a, s)
-                      : dispatch<__nv_bfloat16>(p, mw, mh, out, a, s);
+    return dtype == 0 ? launch<float>(p, mw, mh, out, a, s)
+                      : launch<__nv_bfloat16>(p, mw, mh, out, a, s);
 }
 
 }  // extern "C"

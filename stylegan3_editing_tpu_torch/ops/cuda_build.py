@@ -55,7 +55,8 @@ KERNELS: Dict[str, Kernel] = {
         "sg3_fir_taps_smem_bytes": (_SIZE, [_I])}),
     "fir_banded": Kernel(_CSRC / "fir_banded.cu", {
         "sg3_fir_banded": (_I, [_P] * 4 + [_I] * 6 + [_P]),
-        "sg3_fir_banded_smem_bytes": (_SIZE, [_I] * 5)}),
+        "sg3_fir_banded_smem_bytes": (_SIZE, [_I] * 5),
+        "sg3_fir_banded_blocks_per_sm": (_I, [_I] * 5)}),
 }
 
 # Launches of each kernel since the last `reset_launches()`.
