@@ -7,7 +7,7 @@
 //   t[q, j, c] = sum_w Mw[j, w] * P[q, w, c]   (exact products, fp32 sums)
 //   o[i, j, c] = sum_q Mh[i, q] * t[q, j, c]   (an fp32 contraction over fp32 t)
 // into o [I, J, C] in fp32, for any matrices: a banded Mw and Mh make it the
-// FIR, but nothing here relies on the band.
+// FIR.
 //
 // Both products are GEMMs with a small M and K (J or I rows, Qw or Qh deep)
 // and a wide N (the channels), run with mma.sync:
@@ -17,27 +17,30 @@
 // - the second: t is split into tf32 hi + lo (tf32 alone keeps ~2^-11, a
 //   bf16-rounded t 2^-9: neither is the TPU kernel's function); Mh is exact
 //   in tf32 when it holds bf16 values (two MMAs), else it is split too (three).
-// fp32 matrices are split once, as they are staged: shared memory holds their
-// tf32 hi and lo planes, and the inner loops split only P and t.
 //
-// The band's all-zero blocks are skipped. While a matrix is staged, the block
-// records for each m-tile the first and last K step that holds a non-zero
-// entry (shared-memory atomicMin / atomicMax), and both products run over
-// that range only. Dense matrices run every step; for a finite plane the
-// result is the dense product's, since the skipped terms are exact zeros.
-// Unlike the TPU kernel's dense products, a non-finite value of P under a
-// skipped block is not spread into o.
-// One block owns one group of kCg = 8 channels (the MMA's N). The group's
-// whole fp32 t, [Qh][J][8], stays in shared memory between the two products
-// (158 KB at the probe's 76 x 76 -> 65 x 65), so P is read and o written
-// once; one block of 16 warps fills an SM. A warp takes one row q of P at a
-// time for the first product, its B fragments loaded from device memory into
-// registers up front, and one column j of t at a time for the second. The
-// number of 16-row m-tiles, MT (up to 8: J, I <= 128), is a template
-// parameter, so a warp's MT accumulator chains sit in one basic block and
-// their MMAs interleave. The matrices sit in shared memory, zero-padded to
-// the MMA tiles, with row pitches that keep a warp's fragment loads free of
-// bank conflicts.
+// Schedule. A block owns one group of kCg = 8 channels (the MMA's N) and one
+// band of at most kBand = 16 columns j of t and o: J is cut into
+// ceil(J / 16) bands of equal width (the last may be narrower). Columns of t
+// and o partition exactly, so a band needs only Mw's rows of that band and
+// gives only o's columns of that band, with nothing recomputed for any
+// matrices. The band index is the grid's fastest, so the blocks of one
+// channel group run together and share P's rows in L2. A block keeps its
+// band's fp32 t, [Qh][band][8], in shared memory between the two products,
+// small enough that two or three blocks share an SM: one block's loads
+// overlap another's products and stores. A warp takes one row q of P at a
+// time for the first product (one m-tile: the band's rows of Mw), and one
+// m-tile of Mh with up to kCols columns of t at a time for the second.
+//
+// The band's all-zero blocks are skipped. While a matrix is staged, the
+// block records for each m-tile the first and last K step that holds a
+// non-zero entry (shared-memory atomicMin / atomicMax), and both products,
+// and the loads of P, run over that range only. Dense matrices run every
+// step; for a finite plane the result is the dense product's, since the
+// skipped terms are exact zeros. Unlike the TPU kernel's dense products, a
+// non-finite value of P under a skipped block is not spread into o.
+// A warp holds the A fragments of up to kRegK K steps in registers, split
+// into tf32 hi and lo once (fp32): for the probe's 12 taps every m-tile's
+// range fits, and the inner loops split only P and t.
 //
 // Bound on the card: at 12 taps the useful work is ~50 FLOP per output
 // against 6-8 bytes, so bytes(in + out) / 3.35 TB/s. The tensor cores also
@@ -57,10 +60,15 @@
 
 namespace {
 
-constexpr int kThreads = 512, kWarps = kThreads / 32;
+constexpr int kThreads = 256, kWarps = kThreads / 32;
+constexpr int kMinBlocks = 3;  // resident blocks per SM that the registers must allow
 constexpr int kCg = 8;         // channels per block: the MMA's N
-constexpr int kMaxMt = 8;      // m-tiles of 16 rows: J, I <= 128
-constexpr int kMaxQw = 128;    // a row's B fragments of the first product sit in registers
+constexpr int kBand = 16;      // most columns of t and o per block: one m-tile of Mw
+constexpr int kMaxMt = 8;      // m-tiles of Mh: I <= 128
+constexpr int kMaxQw = 128;
+constexpr int kMaxRows = 128;  // J and I
+constexpr int kRegK = 4;       // K steps whose A fragments a warp holds in registers
+constexpr int kCols = 4;       // columns of t per task of the second product
 
 template <typename T>
 constexpr int kStepK = std::is_same<T, float>::value ? 8 : 16;  // K of the first product's MMA
@@ -69,12 +77,12 @@ constexpr int kStepK = std::is_same<T, float>::value ? 8 : 16;  // K of the firs
 constexpr int pad_to(int v, int m, int r) { return v + ((r - v % m) % m + m) % m; }
 
 struct Layout {
-    int mt;        // m-tiles of both matrices (rows zero-padded to 16 mt)
-    int kt1, ldw;  // first product: K steps over Qw, Mw pitch (elements)
-    int kt2, ldh;  // second: K steps over Qh, Mh pitch (floats)
-    int pitch;     // t's row pitch (floats); a row q holds [J][kCg]
+    int bands, band;  // J in `bands` bands of `band` <= kBand columns (the last may be narrower)
+    int mt;           // m-tiles of Mh (rows zero-padded to 16 mt)
+    int kt1, ldw;     // first product: K steps over Qw, Mw pitch (elements)
+    int kt2, ldh;     // second: K steps over Qh, Mh pitch (floats)
+    int pitch;        // t's row pitch (floats); a row q holds [band][kCg]
     size_t t_bytes, m_bytes;
-    size_t mw_plane, mh_plane;  // elements of one plane (fp32: hi, then lo)
 };
 
 struct Args {
@@ -88,18 +96,17 @@ struct Args {
 template <typename T>
 Layout layout(int qh, int qw, int j, int i) {
     Layout l;
-    l.mt = (j > i ? j + 15 : i + 15) / 16;
+    l.bands = (j + kBand - 1) / kBand;
+    l.band = (j + l.bands - 1) / l.bands;
+    l.mt = (i + 15) / 16;
     l.kt1 = (qw + kStepK<T> - 1) / kStepK<T>;
     l.ldw = sizeof(T) == 4 ? pad_to(l.kt1 * 8, 8, 4) : pad_to(l.kt1 * 16, 16, 8);
     l.kt2 = (qh + 7) / 8;
     l.ldh = pad_to(l.kt2 * 8, 8, 4);
-    l.pitch = pad_to(j * kCg, 32, 8);
+    l.pitch = pad_to(l.band * kCg, 32, 8);
     l.t_bytes = sizeof(float) * size_t(qh) * l.pitch;
-    constexpr size_t planes = sizeof(T) == 4 ? 2 : 1;  // fp32: tf32 hi and lo
-    l.mw_plane = size_t(l.mt) * 16 * l.ldw;
-    l.mh_plane = size_t(l.mt) * 16 * l.ldh;
-    const size_t mw = planes * sizeof(T) * l.mw_plane;
-    const size_t mh = planes * sizeof(float) * l.mh_plane;
+    const size_t mw = sizeof(T) * 16 * size_t(l.ldw);
+    const size_t mh = sizeof(float) * size_t(l.mt) * 16 * l.ldh;
     l.m_bytes = mw > mh ? mw : mh;
     return l;
 }
@@ -112,270 +119,237 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
     return __float2bfloat16_rn(v);
 }
 
-// The A fragment of a 16x8 tf32 tile whose top-left element is at `a` (fp32
-// rows of pitch ld): rows gid, gid + 8; columns tig, tig + 4.
-__device__ __forceinline__ void load_a(const float* a, int ld, int gid, int tig,
-                                       float (&v)[4]) {
-    const float* r = a + gid * ld + tig;
-    v[0] = r[0];
-    v[1] = r[8 * ld];
-    v[2] = r[4];
-    v[3] = r[8 * ld + 4];
-}
-
-// acc[mt] (rows 16 mt .. 16 mt + 15 of the output) += A * B for the 8-wide
-// K step ks whose B fragment is (b0, b1), for the m-tiles whose K range
-// [lo[mt], hi[mt]] holds ks. A is the matrix's tf32 hi plane at `a` (pitch ld,
-// already offset to the K step) and, where it is not exact in tf32
-// (kSplitA), its lo plane `plane` elements further: three MMAs, else two.
-template <bool kSplitA, int MT>
-__device__ __forceinline__ void tf32_step(float (&acc)[MT][4], const float* a, int ld,
-                                          size_t plane, int gid, int tig, float b0, float b1,
-                                          int ks, const int (&lo)[MT], const int (&hi)[MT]) {
-    uint32_t bh[2], bl[2];
-    split(b0, bh[0], bl[0]);
-    split(b1, bh[1], bl[1]);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-        if (ks < lo[mt] || ks > hi[mt]) continue;
-        float av[4];
-        load_a(a + mt * 16 * ld, ld, gid, tig, av);
-        uint32_t ah[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) ah[e] = __float_as_uint(av[e]);
-        if constexpr (kSplitA) {
-            float lv[4];
-            load_a(a + plane + mt * 16 * ld, ld, gid, tig, lv);
-            uint32_t al[4];
-#pragma unroll
-            for (int e = 0; e < 4; ++e) al[e] = __float_as_uint(lv[e]);
-            mma_tf32(acc[mt], al, bh);
-        }
-        mma_tf32(acc[mt], ah, bl);
-        mma_tf32(acc[mt], ah, bh);
-    }
-}
-
-// Stages matrix m [rows, cols] (row pitch cols) as [MT * 16][ld] planes at s,
-// zero-padded to kt whole K steps of width kk: as fp32 tf32 hi and lo planes
-// (`plane` elements apart) where kSplit, else as U. Records each m-tile's first
-// and last K step with a non-zero entry in lo[mt] / hi[mt], which must hold
-// INT_MAX / -1 before (NaN counts as non-zero).
-template <typename U, bool kSplit, typename T, int MT>
-__device__ __forceinline__ void stage_matrix(U* s, const T* m, int rows, int cols, int ld,
-                                             size_t plane, int kt, int kk, int* lo, int* hi) {
+// Stages the rows r0 .. r0 + rows - 1 of matrix m [*, cols] as nt * 16 rows of
+// pitch ld at s, zero-padded to kt whole K steps of width kk, and records
+// each m-tile's first and last K step with a non-zero entry in lo[mt] /
+// hi[mt], which must hold INT_MAX / -1 before (NaN counts as non-zero).
+template <typename U, typename T>
+__device__ __forceinline__ void stage_matrix(U* s, const T* m, int r0, int rows, int cols,
+                                             int nt, int ld, int kt, int kk, int* lo, int* hi) {
     const int width = kt * kk;
-    for (int idx = threadIdx.x; idx < MT * 16 * width; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < nt * 16 * width; idx += kThreads) {
         const int r = idx / width, k = idx - r * width;
-        const float v = r < rows && k < cols ? to_f32(m[size_t(r) * cols + k]) : 0.f;
+        const float v = r < rows && k < cols ? to_f32(m[size_t(r0 + r) * cols + k]) : 0.f;
         if (!(v == 0.f)) {
             atomicMin(lo + r / 16, k / kk);
             atomicMax(hi + r / 16, k / kk);
         }
-        if constexpr (kSplit) {
-            uint32_t vh, vl;
-            split(v, vh, vl);
-            s[r * ld + k] = __uint_as_float(vh);
-            s[plane + r * ld + k] = __uint_as_float(vl);
+        s[r * ld + k] = from_f32<U>(v);
+    }
+}
+
+// The A fragments of K steps ks0 .. min(ks0 + kRegK - 1, ks_hi) of the 16-row
+// tile at `a` (pitch ld): fp32 as tf32 hi (and lo, where kSplit), rows gid,
+// gid + 8 and columns tig, tig + 4 of each 16x8 tile; bf16 as pairs, columns
+// 2 tig (+1), 2 tig + 8 (+9) of each 16x16 tile.
+template <bool kSplit, typename T>
+__device__ __forceinline__ void load_a(const T* a, int ld, int ks0, int ks_hi, int gid, int tig,
+                                       uint32_t (&ah)[kRegK][4], uint32_t (&al)[kRegK][4]) {
+#pragma unroll
+    for (int kk = 0; kk < kRegK; ++kk) {
+        if (ks0 + kk > ks_hi) break;
+        const T* r = a + (ks0 + kk) * kStepK<T> + gid * ld;
+        if constexpr (std::is_same<T, float>::value) {
+            const float v[4] = {r[tig], r[8 * ld + tig], r[tig + 4], r[8 * ld + tig + 4]};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                if constexpr (kSplit) {
+                    split(v[e], ah[kk][e], al[kk][e]);
+                } else {
+                    ah[kk][e] = __float_as_uint(v[e]);  // already a tf32 value
+                }
+            }
         } else {
-            s[r * ld + k] = from_f32<U>(v);
+            ah[kk][0] = *reinterpret_cast<const uint32_t*>(r + 2 * tig);
+            ah[kk][1] = *reinterpret_cast<const uint32_t*>(r + 8 * ld + 2 * tig);
+            ah[kk][2] = *reinterpret_cast<const uint32_t*>(r + 2 * tig + 8);
+            ah[kk][3] = *reinterpret_cast<const uint32_t*>(r + 8 * ld + 2 * tig + 8);
         }
     }
 }
 
-template <typename T, int MT>
-__global__ void __launch_bounds__(kThreads)
+// acc += A * B for one 8-wide K step with the fp32 B fragment (b0, b1) split
+// into tf32 hi + lo: three MMAs where A is split too, else two.
+template <bool kSplitA>
+__device__ __forceinline__ void tf32_step(float (&acc)[4], const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4], float b0, float b1) {
+    uint32_t bh[2], bl[2];
+    split(b0, bh[0], bl[0]);
+    split(b1, bh[1], bl[1]);
+    if constexpr (kSplitA) mma_tf32(acc, al, bh);
+    mma_tf32(acc, ah, bl);
+    mma_tf32(acc, ah, bh);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 fir_banded_kernel(const T* __restrict__ p, const T* __restrict__ mw,
                   const T* __restrict__ mh, float* __restrict__ out,
                   const __grid_constant__ Args a) {
     constexpr bool kF32 = std::is_same<T, float>::value;
-    constexpr int kK = kStepK<T>, kMaxKt = kMaxQw / kK;
+    constexpr int kK = kStepK<T>;
     extern __shared__ __align__(16) unsigned char smem[];
-    float* t_s = reinterpret_cast<float*>(smem);                 // [qh][pitch]
-    T* mw_s = reinterpret_cast<T*>(smem + a.l.t_bytes);          // [MT * 16][ldw] (x2 fp32)
-    float* mh_s = reinterpret_cast<float*>(smem + a.l.t_bytes);  // [MT * 16][ldh], mw_s's space
-    __shared__ int k_lo[2][MT], k_hi[2][MT];  // per product and m-tile: its non-zero K steps
     const Layout& l = a.l;
+    float* t_s = reinterpret_cast<float*>(smem);                 // [qh][pitch]
+    T* mw_s = reinterpret_cast<T*>(smem + l.t_bytes);            // [16][ldw]
+    float* mh_s = reinterpret_cast<float*>(smem + l.t_bytes);    // [mt * 16][ldh], mw_s's space
+    __shared__ int k_lo[1 + kMaxMt], k_hi[1 + kMaxMt];  // Mw's band tile, then Mh's m-tiles
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int gid = lane >> 2, tig = lane & 3;
-    const int c0 = blockIdx.x * kCg;
+    const int band = blockIdx.x % l.bands, c0 = blockIdx.x / l.bands * kCg;
+    const int j0 = band * l.band, nj = min(l.band, a.j - j0);
 
-    if (threadIdx.x < 2 * MT) {
-        (&k_lo[0][0])[threadIdx.x] = 0x7fffffff;
-        (&k_hi[0][0])[threadIdx.x] = -1;
+    if (threadIdx.x <= l.mt) {
+        k_lo[threadIdx.x] = 0x7fffffff;
+        k_hi[threadIdx.x] = -1;
     }
     __syncthreads();
-    // 0. Mw into shared memory, zero-padded to whole tiles (fp32: split).
-    stage_matrix<T, kF32, T, MT>(mw_s, mw, a.j, a.qw, l.ldw, l.mw_plane, l.kt1, kK,
-                                 k_lo[0], k_hi[0]);
+    // 0. The band's rows of Mw into shared memory, zero-padded to a whole tile.
+    stage_matrix(mw_s, mw, j0, nj, a.qw, 1, l.ldw, l.kt1, kK, k_lo, k_hi);
     __syncthreads();
-    int lo[MT], hi[MT], ks_lo = 0x7fffffff, ks_hi = -1;
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-        lo[mt] = k_lo[0][mt];
-        hi[mt] = k_hi[0][mt];
-        ks_lo = min(ks_lo, lo[mt]);
-        ks_hi = max(ks_hi, hi[mt]);
-    }
 
-    // 1. t[q] = Mw . P[q]: a warp per row q; lane (gid, tig) loads the B
-    //    elements of channel c0 + gid at K indices of tig.
-    const bool c_ok = c0 + gid < a.c;
-    for (int q = warp; q < a.qh; q += kWarps) {
-        const T* prow = p + size_t(q) * a.qw * a.c + c0 + gid;
-        auto ld_p = [&](int k) {
-            return c_ok && k < a.qw ? prow[size_t(k) * a.c] : from_f32<T>(0.f);
-        };
-        T bv[kMaxKt][4];  // fp32: K indices tig, tig + 4; bf16: 2 tig + {0, 1, 8, 9}
+    // 1. t[q] = Mw . P[q] over the band's K range: a warp per row q; lane
+    //    (gid, tig) loads the B elements of channel c0 + gid at K indices of tig.
+    {
+        const int lo = k_lo[0], hi = k_hi[0];
+        const bool resident = hi - lo < kRegK;
+        uint32_t ah[kRegK][4], al[kRegK][4];
+        if (resident) load_a<true>(mw_s, l.ldw, lo, hi, gid, tig, ah, al);
+        const bool c_ok = c0 + gid < a.c;
+        for (int q = warp; q < a.qh; q += kWarps) {
+            const T* prow = p + size_t(q) * a.qw * a.c + c0 + gid;
+            auto ld_p = [&](int k) {
+                return c_ok && k < a.qw ? prow[size_t(k) * a.c] : from_f32<T>(0.f);
+            };
+            float acc[4] = {};
+            for (int ks0 = lo; ks0 <= hi; ks0 += kRegK) {
+                if (!resident) load_a<true>(mw_s, l.ldw, ks0, hi, gid, tig, ah, al);
+                T bv[kRegK][4];  // fp32: K indices tig, tig + 4; bf16: 2 tig + {0, 1, 8, 9}
 #pragma unroll
-        for (int ks = 0; ks < kMaxKt; ++ks) {
-            if (ks > ks_hi) break;
-            if (ks < ks_lo) continue;
-            const int k = ks * kK;
-            if constexpr (kF32) {
-                bv[ks][0] = ld_p(k + tig);
-                bv[ks][1] = ld_p(k + tig + 4);
-            } else {
-                bv[ks][0] = ld_p(k + 2 * tig);
-                bv[ks][1] = ld_p(k + 2 * tig + 1);
-                bv[ks][2] = ld_p(k + 2 * tig + 8);
-                bv[ks][3] = ld_p(k + 2 * tig + 9);
-            }
-        }
-        float acc[MT][4] = {};
+                for (int kk = 0; kk < kRegK; ++kk) {
+                    if (ks0 + kk > hi) break;
+                    const int k = (ks0 + kk) * kK;
+                    if constexpr (kF32) {
+                        bv[kk][0] = ld_p(k + tig);
+                        bv[kk][1] = ld_p(k + tig + 4);
+                    } else {
+                        bv[kk][0] = ld_p(k + 2 * tig);
+                        bv[kk][1] = ld_p(k + 2 * tig + 1);
+                        bv[kk][2] = ld_p(k + 2 * tig + 8);
+                        bv[kk][3] = ld_p(k + 2 * tig + 9);
+                    }
+                }
 #pragma unroll
-        for (int ks = 0; ks < kMaxKt; ++ks) {
-            if (ks > ks_hi) break;
-            if (ks < ks_lo) continue;
-            const T* a_tile = mw_s + ks * kK;
-            if constexpr (kF32) {
-                tf32_step<true>(acc, a_tile, l.ldw, l.mw_plane, gid, tig, bv[ks][0], bv[ks][1],
-                                ks, lo, hi);
-            } else {
-                const uint32_t b[2] = {pack_bf16(bv[ks][0], bv[ks][1]),
-                                       pack_bf16(bv[ks][2], bv[ks][3])};
-#pragma unroll
-                for (int mt = 0; mt < MT; ++mt) {
-                    if (ks < lo[mt] || ks > hi[mt]) continue;
-                    const T* r = a_tile + (mt * 16 + gid) * l.ldw + 2 * tig;
-                    const uint32_t av[4] = {
-                        *reinterpret_cast<const uint32_t*>(r),
-                        *reinterpret_cast<const uint32_t*>(r + 8 * l.ldw),
-                        *reinterpret_cast<const uint32_t*>(r + 8),
-                        *reinterpret_cast<const uint32_t*>(r + 8 * l.ldw + 8)};
-                    mma_bf16(acc[mt], av, b);
+                for (int kk = 0; kk < kRegK; ++kk) {
+                    if (ks0 + kk > hi) break;
+                    if constexpr (kF32) {
+                        tf32_step<true>(acc, ah[kk], al[kk], bv[kk][0], bv[kk][1]);
+                    } else {
+                        const uint32_t b[2] = {pack_bf16(bv[kk][0], bv[kk][1]),
+                                               pack_bf16(bv[kk][2], bv[kk][3])};
+                        mma_bf16(acc, ah[kk], b);
+                    }
                 }
             }
-        }
-        // Rows j = 16 mt + gid (+ 8), channels 2 tig, 2 tig + 1.
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
+            // The band's rows j = gid, gid + 8, channels 2 tig, 2 tig + 1.
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
-                const int j = mt * 16 + gid + 8 * h;
-                if (j < a.j) {
+                const int j = gid + 8 * h;
+                if (j < nj) {
                     *reinterpret_cast<float2*>(t_s + q * l.pitch + j * kCg + 2 * tig) =
-                        make_float2(acc[mt][2 * h], acc[mt][2 * h + 1]);
+                        make_float2(acc[2 * h], acc[2 * h + 1]);
                 }
             }
         }
     }
-    __syncthreads();  // t is whole; Mw is no longer needed
+    __syncthreads();  // the band's t is whole; Mw is no longer needed
 
-    // 2. Mh into shared memory as fp32 (exact for bf16; fp32: split), zero-padded.
-    stage_matrix<float, kF32, T, MT>(mh_s, mh, a.i, a.qh, l.ldh, l.mh_plane, l.kt2, 8,
-                                     k_lo[1], k_hi[1]);
+    // 2. Mh into shared memory as fp32 (exact for bf16), zero-padded.
+    stage_matrix(mh_s, mh, 0, a.i, a.qh, l.mt, l.ldh, l.kt2, 8, k_lo + 1, k_hi + 1);
     __syncthreads();
-    ks_lo = 0x7fffffff;
-    ks_hi = -1;
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-        lo[mt] = k_lo[1][mt];
-        hi[mt] = k_hi[1][mt];
-        ks_lo = min(ks_lo, lo[mt]);
-        ks_hi = max(ks_hi, hi[mt]);
-    }
 
-    // 3. o = Mh . t: a warp per column j of t (its 8 channels are the N tile).
+    // 3. o = Mh . t: a warp per task, one m-tile of Mh and up to kCols columns
+    //    of the band's t (8 channels each, the N tile), over the m-tile's K
+    //    range. Tasks run column chunk by column chunk, so the narrow last
+    //    chunk comes last.
     const bool even_c = (a.c & 1) == 0;
-    for (int j = warp; j < a.j; j += kWarps) {
-        const float* tcol = t_s + j * kCg + gid;
-        float acc[MT][4] = {};
-        for (int ks = ks_lo; ks <= ks_hi; ++ks) {
-            const int k = ks * 8 + tig;
-            const float b0 = k < a.qh ? tcol[k * l.pitch] : 0.f;
-            const float b1 = k + 4 < a.qh ? tcol[(k + 4) * l.pitch] : 0.f;
-            tf32_step<kF32>(acc, mh_s + ks * 8, l.ldh, l.mh_plane, gid, tig, b0, b1, ks, lo,
-                            hi);
-        }
+    const int chunks = (nj + kCols - 1) / kCols;
+    for (int task = warp; task < l.mt * chunks; task += kWarps) {
+        const int jc = task / l.mt * kCols, mt = task % l.mt;
+        const int cols = min(kCols, nj - jc);
+        const int lo = k_lo[1 + mt], hi = k_hi[1 + mt];
+        const float* a_tile = mh_s + mt * 16 * l.ldh;
+        float acc[kCols][4] = {};
+        for (int ks0 = lo; ks0 <= hi; ks0 += kRegK) {
+            uint32_t ah[kRegK][4], al[kRegK][4];
+            load_a<kF32>(a_tile, l.ldh, ks0, hi, gid, tig, ah, al);
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
+            for (int kk = 0; kk < kRegK; ++kk) {
+                if (ks0 + kk > hi) break;
+                const int k = (ks0 + kk) * 8 + tig;
+#pragma unroll
+                for (int col = 0; col < kCols; ++col) {
+                    if (col >= cols) break;
+                    const float* tcol = t_s + (jc + col) * kCg + gid;
+                    const float b0 = k < a.qh ? tcol[k * l.pitch] : 0.f;
+                    const float b1 = k + 4 < a.qh ? tcol[(k + 4) * l.pitch] : 0.f;
+                    tf32_step<kF32>(acc[col], ah[kk], al[kk], b0, b1);
+                }
+            }
+        }
+        // Rows i = 16 mt + gid (+ 8), columns j0 + jc + col, channels 2 tig (+ 1).
+#pragma unroll
+        for (int col = 0; col < kCols; ++col) {
+            if (col >= cols) break;
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
                 const int i = mt * 16 + gid + 8 * h, ch = c0 + 2 * tig;
                 if (i >= a.i || ch >= a.c) continue;
-                float* dst = out + (size_t(i) * a.j + j) * a.c + ch;
+                float* dst = out + (size_t(i) * a.j + j0 + jc + col) * a.c + ch;
                 if (even_c) {  // ch + 1 < c, and dst is 8-byte aligned
                     *reinterpret_cast<float2*>(dst) =
-                        make_float2(acc[mt][2 * h], acc[mt][2 * h + 1]);
+                        make_float2(acc[col][2 * h], acc[col][2 * h + 1]);
                 } else {
-                    dst[0] = acc[mt][2 * h];
-                    if (ch + 1 < a.c) dst[1] = acc[mt][2 * h + 1];
+                    dst[0] = acc[col][2 * h];
+                    if (ch + 1 < a.c) dst[1] = acc[col][2 * h + 1];
                 }
             }
         }
     }
 }
 
-// f(std::integral_constant<int, MT>) for the m-tile count mt (1..kMaxMt).
-template <typename F>
-int by_mt(int mt, F&& f) {
-    switch (mt) {
-        case 1: return f(std::integral_constant<int, 1>{});
-        case 2: return f(std::integral_constant<int, 2>{});
-        case 3: return f(std::integral_constant<int, 3>{});
-        case 4: return f(std::integral_constant<int, 4>{});
-        case 5: return f(std::integral_constant<int, 5>{});
-        case 6: return f(std::integral_constant<int, 6>{});
-        case 7: return f(std::integral_constant<int, 7>{});
-        default: return f(std::integral_constant<int, 8>{});
-    }
-}
+size_t smem_bytes(const Layout& l) { return l.t_bytes + l.m_bytes; }
 
 template <typename T>
 int launch(const void* p, const void* mw, const void* mh, void* out, const Args& a,
            cudaStream_t stream) {
-    const size_t smem = a.l.t_bytes + a.l.m_bytes;
-    return by_mt(a.l.mt, [&](auto mt) {
-        auto kernel = fir_banded_kernel<T, decltype(mt)::value>;
-        const cudaError_t err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-        if (err != cudaSuccess) return int(err);
-        kernel<<<dim3(unsigned((a.c + kCg - 1) / kCg)), kThreads, smem, stream>>>(
-            static_cast<const T*>(p), static_cast<const T*>(mw), static_cast<const T*>(mh),
-            static_cast<float*>(out), a);
-        return int(cudaGetLastError());
-    });
+    auto kernel = fir_banded_kernel<T>;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem_bytes(a.l)));
+    if (err != cudaSuccess) return int(err);
+    const unsigned groups = unsigned((a.c + kCg - 1) / kCg);
+    kernel<<<dim3(groups * unsigned(a.l.bands)), kThreads, smem_bytes(a.l), stream>>>(
+        static_cast<const T*>(p), static_cast<const T*>(mw), static_cast<const T*>(mh),
+        static_cast<float*>(out), a);
+    return int(cudaGetLastError());
 }
 
 template <typename T>
 int blocks_per_sm(const Args& a) {
-    const size_t smem = a.l.t_bytes + a.l.m_bytes;
-    return by_mt(a.l.mt, [&](auto mt) {
-        auto kernel = fir_banded_kernel<T, decltype(mt)::value>;
-        int n = 0;
-        cudaError_t err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-        if (err == cudaSuccess) {
-            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, smem);
-        }
-        return err == cudaSuccess ? n : -int(err);
-    });
+    auto kernel = fir_banded_kernel<T>;
+    int n = 0;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           int(smem_bytes(a.l)));
+    if (err == cudaSuccess) {
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads,
+                                                            smem_bytes(a.l));
+    }
+    return err == cudaSuccess ? n : -int(err);
 }
 
 bool valid(int qh, int qw, int c, int j, int i, int dtype) {
     return qh >= 1 && qw >= 1 && qw <= kMaxQw && c >= 1 && j >= 1 && i >= 1 &&
-           j <= 16 * kMaxMt && i <= 16 * kMaxMt && (dtype == 0 || dtype == 1);
+           j <= kMaxRows && i <= kMaxRows && (dtype == 0 || dtype == 1);
 }
 
 Args args(int qh, int qw, int c, int j, int i, int dtype) {
@@ -389,8 +363,7 @@ extern "C" {
 
 // Dynamic shared memory of one block, dtype 0 = float32, 1 = bfloat16.
 size_t sg3_fir_banded_smem_bytes(int qh, int qw, int j, int i, int dtype) {
-    const Layout l = args(qh, qw, 1, j, i, dtype).l;
-    return l.t_bytes + l.m_bytes;
+    return smem_bytes(args(qh, qw, 1, j, i, dtype).l);
 }
 
 // Blocks of the launch for these shapes that the card keeps resident on one

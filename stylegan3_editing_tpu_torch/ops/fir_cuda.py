@@ -25,7 +25,7 @@ from .cuda_build import build, launches
 
 MAX_TAPS = 64                 # fir_taps.cu kMaxTaps
 MAX_QW = 128                  # fir_banded.cu kMaxQw
-MAX_ROWS = 128                # fir_banded.cu 16 * kMaxMt: J and I
+MAX_ROWS = 128                # fir_banded.cu kMaxRows: J and I
 SMEM_PER_BLOCK = 232_448      # H100: the most dynamic shared memory a block can have
 
 
@@ -79,13 +79,14 @@ def fir_banded_cuda(p: torch.Tensor, mw: torch.Tensor, mh: torch.Tensor) -> torc
                              f"{tuple(m.shape)}")
     j, i = mw.shape[0], mh.shape[0]
     if qw > MAX_QW or max(j, i) > MAX_ROWS:
-        raise ValueError(f"Qw = {qw}, J = {j}, I = {i}: the kernel takes Qw <= {MAX_QW} (a row "
-                         f"of P sits in registers) and J, I <= {MAX_ROWS} (8 MMA tiles)")
+        raise ValueError(f"Qw = {qw}, J = {j}, I = {i}: the kernel takes Qw <= {MAX_QW} and "
+                         f"J, I <= {MAX_ROWS} (8 MMA tiles)")
     lib = build()["fir_banded"]
     smem = lib.sg3_fir_banded_smem_bytes(qh, qw, j, i, _dtype_code(p))
     if smem > SMEM_PER_BLOCK:
         raise ValueError(f"[{qh}, {qw}] -> [{i}, {j}] needs {smem} B of shared memory per "
-                         f"block (t of 8 channels and a matrix); the card has {SMEM_PER_BLOCK}")
+                         f"block (t of one band of at most 16 columns and 8 channels, Qh rows "
+                         f"deep, and the matrices); the card has {SMEM_PER_BLOCK}")
     out = torch.empty((i, j, c), dtype=torch.float32, device=p.device)
     err = lib.sg3_fir_banded(p.data_ptr(), mw.data_ptr(), mh.data_ptr(), out.data_ptr(),
                              _dtype_code(p), qh, qw, c, j, i,
