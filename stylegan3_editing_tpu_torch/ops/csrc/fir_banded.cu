@@ -31,6 +31,15 @@
 // time for the first product (one m-tile: the band's rows of Mw), and one
 // m-tile of Mh with up to kCols columns of t at a time for the second.
 //
+// P's rows reach the first product through shared memory: each warp keeps a
+// ring of two row stages, [column][8 channels], and copies the band's K
+// range of row q + 8 into one with cp.async (16-byte channel slices of a
+// pixel) while it multiplies row q from the other. bf16 B fragments come
+// from the stage with ldmatrix.trans, fp32 ones with conflict-free 32-bit
+// loads. Where a pixel's 8 channels are not whole aligned 16-byte slices
+// (C % 8 != 0 in bf16, C % 4 != 0 in fp32, the last group of a ragged C, or
+// a plane not 16-byte aligned), the warp fills the stage with element loads.
+//
 // The band's all-zero blocks are skipped. While a matrix is staged, the
 // block records for each m-tile the first and last K step that holds a
 // non-zero entry (shared-memory atomicMin / atomicMax), and both products,
@@ -56,7 +65,7 @@
 
 #include <type_traits>
 
-#include "mma.cuh"  // mma_tf32, mma_bf16, split, pack_bf16
+#include "mma.cuh"  // mma_tf32, mma_bf16, split, pack_bf16, ldmatrix_x4_trans, cp_async_16
 
 namespace {
 
@@ -82,7 +91,8 @@ struct Layout {
     int kt1, ldw;     // first product: K steps over Qw, Mw pitch (elements)
     int kt2, ldh;     // second: K steps over Qh, Mh pitch (floats)
     int pitch;        // t's row pitch (floats); a row q holds [band][kCg]
-    size_t t_bytes, m_bytes;
+    int rows;         // columns of P a ring stage holds, [rows][kCg]
+    size_t t_bytes, mw_bytes, m_bytes;
 };
 
 struct Args {
@@ -104,10 +114,14 @@ Layout layout(int qh, int qw, int j, int i) {
     l.kt2 = (qh + 7) / 8;
     l.ldh = pad_to(l.kt2 * 8, 8, 4);
     l.pitch = pad_to(l.band * kCg, 32, 8);
+    // fp32 reads are guarded at Qw; ldmatrix reads two whole K steps of 16
+    // from the first, so bf16 stages hold one step more, zeroed past Qw.
+    l.rows = sizeof(T) == 4 ? qw : l.kt1 * 16 + 16;
     l.t_bytes = sizeof(float) * size_t(qh) * l.pitch;
-    const size_t mw = sizeof(T) * 16 * size_t(l.ldw);
+    l.mw_bytes = sizeof(T) * 16 * size_t(l.ldw);
+    const size_t ring = sizeof(T) * size_t(kWarps) * 2 * l.rows * kCg;
     const size_t mh = sizeof(float) * size_t(l.mt) * 16 * l.ldh;
-    l.m_bytes = mw > mh ? mw : mh;
+    l.m_bytes = l.mw_bytes + ring > mh ? l.mw_bytes + ring : mh;
     return l;
 }
 
@@ -168,6 +182,16 @@ __device__ __forceinline__ void load_a(const T* a, int ld, int ks0, int ks_hi, i
     }
 }
 
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Waits until at most n of this thread's latest cp.async groups are pending.
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;" ::"n"(n) : "memory");
+}
+
 // acc += A * B for one 8-wide K step with the fp32 B fragment (b0, b1) split
 // into tf32 hi + lo: three MMAs where A is split too, else two.
 template <bool kSplitA>
@@ -192,6 +216,7 @@ fir_banded_kernel(const T* __restrict__ p, const T* __restrict__ mw,
     const Layout& l = a.l;
     float* t_s = reinterpret_cast<float*>(smem);                 // [qh][pitch]
     T* mw_s = reinterpret_cast<T*>(smem + l.t_bytes);            // [16][ldw]
+    T* ring_s = reinterpret_cast<T*>(smem + l.t_bytes + l.mw_bytes);  // [warp][2][rows][kCg]
     float* mh_s = reinterpret_cast<float*>(smem + l.t_bytes);    // [mt * 16][ldh], mw_s's space
     __shared__ int k_lo[1 + kMaxMt], k_hi[1 + kMaxMt];  // Mw's band tile, then Mh's m-tiles
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -208,49 +233,74 @@ fir_banded_kernel(const T* __restrict__ p, const T* __restrict__ mw,
     stage_matrix(mw_s, mw, j0, nj, a.qw, 1, l.ldw, l.kt1, kK, k_lo, k_hi);
     __syncthreads();
 
-    // 1. t[q] = Mw . P[q] over the band's K range: a warp per row q; lane
-    //    (gid, tig) loads the B elements of channel c0 + gid at K indices of tig.
+    // 1. t[q] = Mw . P[q] over the band's K range: a warp per row q, from its
+    //    ring stage; lane (gid, tig) takes channel c0 + gid at K indices of tig.
     {
         const int lo = k_lo[0], hi = k_hi[0];
         const bool resident = hi - lo < kRegK;
         uint32_t ah[kRegK][4], al[kRegK][4];
         if (resident) load_a<true>(mw_s, l.ldw, lo, hi, gid, tig, ah, al);
-        const bool c_ok = c0 + gid < a.c;
-        for (int q = warp; q < a.qh; q += kWarps) {
-            const T* prow = p + size_t(q) * a.qw * a.c + c0 + gid;
-            auto ld_p = [&](int k) {
-                return c_ok && k < a.qw ? prow[size_t(k) * a.c] : from_f32<T>(0.f);
-            };
+        T* ring = ring_s + size_t(warp) * 2 * l.rows * kCg;
+        for (int idx = lane; idx < 2 * (l.rows - a.qw) * kCg; idx += 32) {
+            const int st = idx / ((l.rows - a.qw) * kCg), e = idx % ((l.rows - a.qw) * kCg);
+            ring[(st * l.rows + a.qw) * kCg + e] = from_f32<T>(0.f);
+        }
+        // The band's columns of P, and whether they come as whole aligned slices.
+        const int w0 = hi < lo ? 0 : lo * kK, w1 = hi < lo ? 0 : min(a.qw, (hi + 1) * kK);
+        constexpr int kPer = 16 / int(sizeof(T));  // elements of a 16-byte slice
+        const bool whole = (reinterpret_cast<uintptr_t>(p) & 15) == 0 && a.c % kPer == 0 &&
+                           c0 + kCg <= a.c;
+        auto fetch = [&](int q, T* st) {  // P[q, w0:w1, c0:c0 + 8] into st [rows][kCg]
+            const T* src = p + size_t(q) * a.qw * a.c + c0;
+            if (whole) {
+                for (int idx = lane; idx < (w1 - w0) * (kCg / kPer); idx += 32) {
+                    const int w = w0 + idx / (kCg / kPer), e = idx % (kCg / kPer) * kPer;
+                    cp_async_16(st + w * kCg + e, src + size_t(w) * a.c + e);
+                }
+            } else {
+                for (int idx = lane; idx < (w1 - w0) * kCg; idx += 32) {
+                    const int w = w0 + idx / kCg, e = idx % kCg;
+                    st[w * kCg + e] = c0 + e < a.c ? src[size_t(w) * a.c + e] : from_f32<T>(0.f);
+                }
+            }
+            cp_async_commit();
+        };
+        if (warp < a.qh) fetch(warp, ring);
+        for (int q = warp, n = 0; q < a.qh; q += kWarps, ++n) {
+            const T* st = ring + (n & 1) * l.rows * kCg;
+            if (q + kWarps < a.qh) {
+                fetch(q + kWarps, ring + ((n + 1) & 1) * l.rows * kCg);
+            } else {
+                cp_async_commit();
+            }
+            cp_async_wait<1>();  // row q has landed
+            __syncwarp();
             float acc[4] = {};
             for (int ks0 = lo; ks0 <= hi; ks0 += kRegK) {
                 if (!resident) load_a<true>(mw_s, l.ldw, ks0, hi, gid, tig, ah, al);
-                T bv[kRegK][4];  // fp32: K indices tig, tig + 4; bf16: 2 tig + {0, 1, 8, 9}
+                if constexpr (kF32) {
 #pragma unroll
-                for (int kk = 0; kk < kRegK; ++kk) {
-                    if (ks0 + kk > hi) break;
-                    const int k = (ks0 + kk) * kK;
-                    if constexpr (kF32) {
-                        bv[kk][0] = ld_p(k + tig);
-                        bv[kk][1] = ld_p(k + tig + 4);
-                    } else {
-                        bv[kk][0] = ld_p(k + 2 * tig);
-                        bv[kk][1] = ld_p(k + 2 * tig + 1);
-                        bv[kk][2] = ld_p(k + 2 * tig + 8);
-                        bv[kk][3] = ld_p(k + 2 * tig + 9);
+                    for (int kk = 0; kk < kRegK; ++kk) {
+                        if (ks0 + kk > hi) break;
+                        const int k = (ks0 + kk) * 8 + tig;
+                        const float b0 = k < a.qw ? st[k * kCg + gid] : 0.f;
+                        const float b1 = k + 4 < a.qw ? st[(k + 4) * kCg + gid] : 0.f;
+                        tf32_step<true>(acc, ah[kk], al[kk], b0, b1);
                     }
-                }
+                } else {
+                    // Two K steps of 16 per ldmatrix: rows k .. k + 31 of the stage.
 #pragma unroll
-                for (int kk = 0; kk < kRegK; ++kk) {
-                    if (ks0 + kk > hi) break;
-                    if constexpr (kF32) {
-                        tf32_step<true>(acc, ah[kk], al[kk], bv[kk][0], bv[kk][1]);
-                    } else {
-                        const uint32_t b[2] = {pack_bf16(bv[kk][0], bv[kk][1]),
-                                               pack_bf16(bv[kk][2], bv[kk][3])};
-                        mma_bf16(acc, ah[kk], b);
+                    for (int kk = 0; kk < kRegK; kk += 2) {
+                        if (ks0 + kk > hi) break;
+                        uint32_t b[4];
+                        ldmatrix_x4_trans(b, st + ((ks0 + kk) * 16 + lane) * kCg);
+                        const uint32_t b01[2] = {b[0], b[1]}, b23[2] = {b[2], b[3]};
+                        mma_bf16(acc, ah[kk], b01);
+                        if (ks0 + kk + 1 <= hi) mma_bf16(acc, ah[kk + 1], b23);
                     }
                 }
             }
+            __syncwarp();  // the stage is read: the next fetch may refill it
             // The band's rows j = gid, gid + 8, channels 2 tig, 2 tig + 1.
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
@@ -261,6 +311,7 @@ fir_banded_kernel(const T* __restrict__ p, const T* __restrict__ mw,
                 }
             }
         }
+        cp_async_wait<0>();
     }
     __syncthreads();  // the band's t is whole; Mw is no longer needed
 
