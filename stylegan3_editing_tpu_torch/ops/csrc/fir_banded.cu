@@ -135,39 +135,57 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 
 // Stages the rows r0 .. r0 + rows - 1 of matrix m [*, cols] as nt * 16 rows of
 // pitch ld at s, zero-padded to kt whole K steps of width kk: a warp per row,
-// its lanes along the row, all of a lane's loads of 128 columns issued before
-// the first is used. Records each m-tile's first and last K step with a
+// its lanes along the row, the loads of kBatch rows (128 columns each) in
+// flight at once. Records each m-tile's first and last K step with a
 // non-zero entry in lo[mt] / hi[mt], which must hold INT_MAX / -1 before (NaN
 // counts as non-zero): one atomic per row, after a warp reduction.
 template <typename U, typename T>
 __device__ __forceinline__ void stage_matrix(U* s, const T* m, int r0, int rows, int cols,
                                              int nt, int ld, int kt, int kk, int* lo, int* hi) {
+    constexpr int kBatch = 4;
     const int lane = threadIdx.x & 31, width = kt * kk;
-    for (int r = threadIdx.x >> 5; r < nt * 16; r += kWarps) {
-        int first = 0x7fffffff, last = -1;
-        for (int k0 = 0; k0 < width; k0 += 128) {
-            float v[4];
+    for (int rb = threadIdx.x >> 5; rb < nt * 16; rb += kWarps * kBatch) {
+        int first[kBatch], last[kBatch];
 #pragma unroll
-            for (int u = 0; u < 4; ++u) {
-                const int k = k0 + lane + 32 * u;
-                v[u] = r < rows && k < cols ? to_f32(m[size_t(r0 + r) * cols + k]) : 0.f;
+        for (int b = 0; b < kBatch; ++b) {
+            first[b] = 0x7fffffff;
+            last[b] = -1;
+        }
+        for (int k0 = 0; k0 < width; k0 += 128) {
+            float v[kBatch][4];
+#pragma unroll
+            for (int b = 0; b < kBatch; ++b) {
+                const int r = rb + b * kWarps;
+#pragma unroll
+                for (int u = 0; u < 4; ++u) {
+                    const int k = k0 + lane + 32 * u;
+                    v[b][u] = r < rows && k < cols ? to_f32(m[size_t(r0 + r) * cols + k]) : 0.f;
+                }
             }
 #pragma unroll
-            for (int u = 0; u < 4; ++u) {
-                const int k = k0 + lane + 32 * u;
-                if (k >= width) break;
-                s[r * ld + k] = from_f32<U>(v[u]);
-                if (!(v[u] == 0.f)) {
-                    first = min(first, k);
-                    last = max(last, k);
+            for (int b = 0; b < kBatch; ++b) {
+                const int r = rb + b * kWarps;
+#pragma unroll
+                for (int u = 0; u < 4; ++u) {
+                    const int k = k0 + lane + 32 * u;
+                    if (r >= nt * 16 || k >= width) continue;
+                    s[r * ld + k] = from_f32<U>(v[b][u]);
+                    if (!(v[b][u] == 0.f)) {
+                        first[b] = min(first[b], k);
+                        last[b] = max(last[b], k);
+                    }
                 }
             }
         }
-        first = __reduce_min_sync(0xffffffffu, first);
-        last = __reduce_max_sync(0xffffffffu, last);
-        if (lane == 0 && last >= 0) {
-            atomicMin(lo + r / 16, first / kk);
-            atomicMax(hi + r / 16, last / kk);
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b) {
+            const int r = rb + b * kWarps;
+            const int f = __reduce_min_sync(0xffffffffu, first[b]);
+            const int g = __reduce_max_sync(0xffffffffu, last[b]);
+            if (lane == 0 && g >= 0) {
+                atomicMin(lo + r / 16, f / kk);
+                atomicMax(hi + r / 16, g / kk);
+            }
         }
     }
 }
