@@ -32,8 +32,8 @@
 // m-tile of Mh with up to kCols columns of t at a time for the second.
 //
 // P's rows reach the first product through shared memory: each warp keeps a
-// ring of two row stages, [column][8 channels], and copies the band's K
-// range of row q + 8 into one with cp.async (16-byte channel slices of a
+// ring of two row stages, [column][8 channels], and copies the band's
+// columns of row q + 8 into one with cp.async (16-byte channel slices of a
 // pixel) while it multiplies row q from the other. bf16 B fragments come
 // from the stage with ldmatrix.trans, fp32 ones with conflict-free 32-bit
 // loads. Where a pixel's 8 channels are not whole aligned 16-byte slices
@@ -41,12 +41,14 @@
 // a plane not 16-byte aligned), the warp fills the stage with element loads.
 //
 // The band's all-zero blocks are skipped. While a matrix is staged, the
-// block records for each m-tile the first and last K step that holds a
-// non-zero entry (shared-memory atomicMin / atomicMax), and both products,
-// and the loads of P, run over that range only. Dense matrices run every
-// step; for a finite plane the result is the dense product's, since the
-// skipped terms are exact zeros. Unlike the TPU kernel's dense products, a
-// non-finite value of P under a skipped block is not spread into o.
+// block records for each m-tile the first and last column that holds a
+// non-zero entry (a warp reduction per row, then shared-memory atomicMin /
+// atomicMax), and both products run over the K steps that hold them only.
+// A band fetches only P's columns in that range; the rest of its K steps
+// read zeros. Dense matrices run every step; for a finite plane the result
+// is the dense product's, since the skipped terms are exact zeros. Unlike
+// the TPU kernel's dense products, a non-finite value of P outside a band's
+// columns, or under a skipped block of Mh, is not spread into o.
 // A warp holds the A fragments of up to kRegK K steps in registers, split
 // into tf32 hi and lo once (fp32): for the probe's 12 taps every m-tile's
 // range fits, and the inner loops split only P and t.
@@ -115,7 +117,7 @@ Layout layout(int qh, int qw, int j, int i) {
     l.ldh = pad_to(l.kt2 * 8, 8, 4);
     l.pitch = pad_to(l.band * kCg, 32, 8);
     // fp32 reads are guarded at Qw; ldmatrix reads two whole K steps of 16
-    // from the first, so bf16 stages hold one step more, zeroed past Qw.
+    // from the first, so bf16 stages hold one step more.
     l.rows = sizeof(T) == 4 ? qw : l.kt1 * 16 + 16;
     l.t_bytes = sizeof(float) * size_t(qh) * l.pitch;
     l.mw_bytes = sizeof(T) * 16 * size_t(l.ldw);
@@ -134,16 +136,16 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 
 // Stages the rows r0 .. r0 + rows - 1 of matrix m [*, cols] as nt * 16 rows of
-// pitch ld at s, zero-padded to kt whole K steps of width kk: a warp per row,
+// pitch ld at s, zero-padded to `width` columns: a warp per row,
 // its lanes along the row, the loads of kBatch rows (128 columns each) in
-// flight at once. Records each m-tile's first and last K step with a
+// flight at once. Records each m-tile's first and last column with a
 // non-zero entry in lo[mt] / hi[mt], which must hold INT_MAX / -1 before (NaN
 // counts as non-zero): one atomic per row, after a warp reduction.
 template <typename U, typename T>
 __device__ __forceinline__ void stage_matrix(U* s, const T* m, int r0, int rows, int cols,
-                                             int nt, int ld, int kt, int kk, int* lo, int* hi) {
+                                             int nt, int ld, int width, int* lo, int* hi) {
     constexpr int kBatch = 4;
-    const int lane = threadIdx.x & 31, width = kt * kk;
+    const int lane = threadIdx.x & 31;
     for (int rb = threadIdx.x >> 5; rb < nt * 16; rb += kWarps * kBatch) {
         int first[kBatch], last[kBatch];
 #pragma unroll
@@ -183,8 +185,8 @@ __device__ __forceinline__ void stage_matrix(U* s, const T* m, int r0, int rows,
             const int f = __reduce_min_sync(0xffffffffu, first[b]);
             const int g = __reduce_max_sync(0xffffffffu, last[b]);
             if (lane == 0 && g >= 0) {
-                atomicMin(lo + r / 16, f / kk);
-                atomicMax(hi + r / 16, g / kk);
+                atomicMin(lo + r / 16, f);
+                atomicMax(hi + r / 16, g);
             }
         }
     }
@@ -230,6 +232,12 @@ __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;" ::"n"(n) : "memory");
 }
 
+// The K steps of width kk that hold columns first .. last: (1, 0), no step,
+// where last < 0.
+__device__ __forceinline__ int2 k_steps(int first, int last, int kk) {
+    return last < 0 ? make_int2(1, 0) : make_int2(first / kk, last / kk);
+}
+
 // acc += A * B for one 8-wide K step with the fp32 B fragment (b0, b1) split
 // into tf32 hi + lo: three MMAs where A is split too, else two.
 template <bool kSplitA>
@@ -268,23 +276,26 @@ fir_banded_kernel(const T* __restrict__ p, const T* __restrict__ mw,
     }
     __syncthreads();
     // 0. The band's rows of Mw into shared memory, zero-padded to a whole tile.
-    stage_matrix(mw_s, mw, j0, nj, a.qw, 1, l.ldw, l.kt1, kK, k_lo, k_hi);
+    stage_matrix(mw_s, mw, j0, nj, a.qw, 1, l.ldw, l.kt1 * kK, k_lo, k_hi);
     __syncthreads();
 
     // 1. t[q] = Mw . P[q] over the band's K range: a warp per row q, from its
     //    ring stage; lane (gid, tig) takes channel c0 + gid at K indices of tig.
     {
-        const int lo = k_lo[0], hi = k_hi[0];
+        const int2 ks = k_steps(k_lo[0], k_hi[0], kK);
+        const int lo = ks.x, hi = ks.y;
         const bool resident = hi - lo < kRegK;
         uint32_t ah[kRegK][4], al[kRegK][4];
         if (resident) load_a<true>(mw_s, l.ldw, lo, hi, gid, tig, ah, al);
+        // The ring starts zeroed: a stage's columns outside the band's non-zero
+        // columns w0 .. w1 - 1, the only ones fetched, multiply Mw's zeros.
         T* ring = ring_s + size_t(warp) * 2 * l.rows * kCg;
-        for (int idx = lane; idx < 2 * (l.rows - a.qw) * kCg; idx += 32) {
-            const int st = idx / ((l.rows - a.qw) * kCg), e = idx % ((l.rows - a.qw) * kCg);
-            ring[(st * l.rows + a.qw) * kCg + e] = from_f32<T>(0.f);
+        for (int idx = lane; idx < 2 * l.rows * kCg * int(sizeof(T)) / 16; idx += 32) {
+            reinterpret_cast<uint4*>(ring)[idx] = make_uint4(0, 0, 0, 0);
         }
+        __syncwarp();
         // The band's columns of P, and whether they come as whole aligned slices.
-        const int w0 = hi < lo ? 0 : lo * kK, w1 = hi < lo ? 0 : min(a.qw, (hi + 1) * kK);
+        const int w0 = hi < lo ? 0 : k_lo[0], w1 = hi < lo ? 0 : k_hi[0] + 1;
         constexpr int kPer = 16 / int(sizeof(T));  // elements of a 16-byte slice
         const bool whole = (reinterpret_cast<uintptr_t>(p) & 15) == 0 && a.c % kPer == 0 &&
                            c0 + kCg <= a.c;
@@ -354,7 +365,7 @@ fir_banded_kernel(const T* __restrict__ p, const T* __restrict__ mw,
     __syncthreads();  // the band's t is whole; Mw is no longer needed
 
     // 2. Mh into shared memory as fp32 (exact for bf16), zero-padded.
-    stage_matrix(mh_s, mh, 0, a.i, a.qh, l.mt, l.ldh, l.kt2, 8, k_lo + 1, k_hi + 1);
+    stage_matrix(mh_s, mh, 0, a.i, a.qh, l.mt, l.ldh, l.kt2 * 8, k_lo + 1, k_hi + 1);
     __syncthreads();
 
     // 3. o = Mh . t: a warp per task, one m-tile of Mh and up to kCols columns
@@ -366,7 +377,8 @@ fir_banded_kernel(const T* __restrict__ p, const T* __restrict__ mw,
     for (int task = warp; task < l.mt * chunks; task += kWarps) {
         const int jc = task / l.mt * kCols, mt = task % l.mt;
         const int cols = min(kCols, nj - jc);
-        const int lo = k_lo[1 + mt], hi = k_hi[1 + mt];
+        const int2 ks = k_steps(k_lo[1 + mt], k_hi[1 + mt], 8);
+        const int lo = ks.x, hi = ks.y;
         const float* a_tile = mh_s + mt * 16 * l.ldh;
         float acc[kCols][4] = {};
         for (int ks0 = lo; ks0 <= hi; ks0 += kRegK) {
