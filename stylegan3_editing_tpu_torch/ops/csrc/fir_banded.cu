@@ -264,25 +264,26 @@ fir_banded_kernel(const T* __restrict__ p, const T* __restrict__ mw,
     T* mw_s = reinterpret_cast<T*>(smem + l.t_bytes);            // [16][ldw]
     T* ring_s = reinterpret_cast<T*>(smem + l.t_bytes + l.mw_bytes);  // [warp][2][rows][kCg]
     float* mh_s = reinterpret_cast<float*>(smem + l.t_bytes);    // [mt * 16][ldh], mw_s's space
-    __shared__ int k_lo[1 + kMaxMt], k_hi[1 + kMaxMt];  // Mw's band tile, then Mh's m-tiles
+    // First and last non-zero column of Mw's band tile, then of Mh's m-tiles.
+    __shared__ int nz_lo[1 + kMaxMt], nz_hi[1 + kMaxMt];
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int gid = lane >> 2, tig = lane & 3;
     const int band = blockIdx.x % l.bands, c0 = blockIdx.x / l.bands * kCg;
     const int j0 = band * l.band, nj = min(l.band, a.j - j0);
 
     if (threadIdx.x <= l.mt) {
-        k_lo[threadIdx.x] = 0x7fffffff;
-        k_hi[threadIdx.x] = -1;
+        nz_lo[threadIdx.x] = 0x7fffffff;
+        nz_hi[threadIdx.x] = -1;
     }
     __syncthreads();
     // 0. The band's rows of Mw into shared memory, zero-padded to a whole tile.
-    stage_matrix(mw_s, mw, j0, nj, a.qw, 1, l.ldw, l.kt1 * kK, k_lo, k_hi);
+    stage_matrix(mw_s, mw, j0, nj, a.qw, 1, l.ldw, l.kt1 * kK, nz_lo, nz_hi);
     __syncthreads();
 
     // 1. t[q] = Mw . P[q] over the band's K range: a warp per row q, from its
     //    ring stage; lane (gid, tig) takes channel c0 + gid at K indices of tig.
     {
-        const int2 ks = k_steps(k_lo[0], k_hi[0], kK);
+        const int2 ks = k_steps(nz_lo[0], nz_hi[0], kK);
         const int lo = ks.x, hi = ks.y;
         const bool resident = hi - lo < kRegK;
         uint32_t ah[kRegK][4], al[kRegK][4];
@@ -295,7 +296,7 @@ fir_banded_kernel(const T* __restrict__ p, const T* __restrict__ mw,
         }
         __syncwarp();
         // The band's columns of P, and whether they come as whole aligned slices.
-        const int w0 = hi < lo ? 0 : k_lo[0], w1 = hi < lo ? 0 : k_hi[0] + 1;
+        const int w0 = hi < lo ? 0 : nz_lo[0], w1 = hi < lo ? 0 : nz_hi[0] + 1;
         constexpr int kPer = 16 / int(sizeof(T));  // elements of a 16-byte slice
         const bool whole = (reinterpret_cast<uintptr_t>(p) & 15) == 0 && a.c % kPer == 0 &&
                            c0 + kCg <= a.c;
@@ -365,7 +366,7 @@ fir_banded_kernel(const T* __restrict__ p, const T* __restrict__ mw,
     __syncthreads();  // the band's t is whole; Mw is no longer needed
 
     // 2. Mh into shared memory as fp32 (exact for bf16), zero-padded.
-    stage_matrix(mh_s, mh, 0, a.i, a.qh, l.mt, l.ldh, l.kt2 * 8, k_lo + 1, k_hi + 1);
+    stage_matrix(mh_s, mh, 0, a.i, a.qh, l.mt, l.ldh, l.kt2 * 8, nz_lo + 1, nz_hi + 1);
     __syncthreads();
 
     // 3. o = Mh . t: a warp per task, one m-tile of Mh and up to kCols columns
@@ -377,7 +378,7 @@ fir_banded_kernel(const T* __restrict__ p, const T* __restrict__ mw,
     for (int task = warp; task < l.mt * chunks; task += kWarps) {
         const int jc = task / l.mt * kCols, mt = task % l.mt;
         const int cols = min(kCols, nj - jc);
-        const int2 ks = k_steps(k_lo[1 + mt], k_hi[1 + mt], 8);
+        const int2 ks = k_steps(nz_lo[1 + mt], nz_hi[1 + mt], 8);
         const int lo = ks.x, hi = ks.y;
         const float* a_tile = mh_s + mt * 16 * l.ldh;
         float acc[kCols][4] = {};

@@ -20,42 +20,24 @@ call.
 
 from __future__ import annotations
 
-import argparse
-import subprocess
-from pathlib import Path
 from typing import Dict, Optional, Sequence
 
-import numpy as np
 import torch
 
-from ..device import resolve_device
 from ..models.sg3 import build_synthesis_layout, sg3_r_config
 from ..ops import cuda_build, flrelu_cuda
 from ..ops.filtered_lrelu import filtered_lrelu_bwd_ref
+from . import version_turns
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     """Check and time the versions; return each label's total ms over the
     layers (the mean of its turns)."""
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("versions", nargs="+", help="LABEL=PATH of a filtered_lrelu_bwd.cu")
-    ap.add_argument("--order", default="", help="labels in timing order (default: each "
-                    "label, then the same in reverse)")
-    ap.add_argument("--layers", default="", help="layer name prefixes, e.g. L10,L11 (all)")
-    ap.add_argument("--iters", type=int, default=10)
-    args = ap.parse_args(argv)
-    sources = {label: Path(path) for label, path in (v.split("=", 1) for v in args.versions)}
-    order = args.order.split(",") if args.order else list(sources) + list(sources)[::-1]
-    assert set(order) <= set(sources), (order, list(sources))
-    dev = resolve_device("cuda")
-    libs = cuda_build.build_versions("filtered_lrelu_bwd", sources)
-    for label in libs:
-        for line in cuda_build.build_log.get(label, "(built earlier)").splitlines():
-            if "Used" in line or "spill" in line or "built" in line:
-                print(f"{label} ptxas: {line.strip()}")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip()
-    print(f"[{smi}] torch {torch.__version__}, CUDA {torch.version.cuda}")
+    args, sources, order = version_turns.parse(
+        argv, __doc__.splitlines()[0], "filtered_lrelu_bwd.cu", iters=10,
+        extra=lambda ap: ap.add_argument("--layers", default="", help="layer name prefixes, "
+                                         "e.g. L10,L11 (all)"))
+    dev, libs, smi = version_turns.build("filtered_lrelu_bwd", sources)
     layers = [s for s in build_synthesis_layout(sg3_r_config(1024)).layers
               if s.up_filter is not None]
     if args.layers:
@@ -91,18 +73,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
                     raise SystemExit(f"{label} on {s.name}: dx off its plain version")
         first = next(iter(outs))
         same = {label: torch.equal(outs[first], dx) for label, dx in outs.items() if label != first}
-        times = []
-        for i, label in enumerate(order):
-            for _ in range(2):
-                call(label)
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-            for _ in range(args.iters):
-                call(label)
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end) / args.iters)
-            totals[i] += times[-1]
+        times = version_turns.turns(call, order, args.iters)
+        totals = [total + t for total, t in zip(totals, times)]
         print(f"{s.name} {str(dt)[6:]} u{s.up_factor} batch 4: "
               + " / ".join(f"{label} {t:.4f}" for label, t in zip(order, times))
               + f" ms; dx equal to {first}'s: {same}; max abs err vs plain: {', '.join(checks)}",
@@ -111,8 +83,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
         torch.cuda.empty_cache()
     print("all layers: " + " / ".join(f"{label} {t:.4f}" for label, t in zip(order, totals))
           + f" ms [{smi}]")
-    return {label: float(np.mean([t for lab, t in zip(order, totals) if lab == label]))
-            for label in dict.fromkeys(order)}
+    return version_turns.means(order, totals)
 
 
 if __name__ == "__main__":

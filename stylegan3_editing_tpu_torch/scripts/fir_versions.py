@@ -20,17 +20,13 @@ within a call.
 
 from __future__ import annotations
 
-import argparse
-import subprocess
-from pathlib import Path
 from typing import Dict, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
-from ..device import resolve_device
 from ..ops import cuda_build, fir_cuda
 from ..ops.banded_fir import banded, fir_banded_ref, hann_taps
+from . import version_turns
 
 SHAPES = [(76, 76, 128), (76, 76, 16896)]  # the probe's plane; 132 SMs x 128 channels
 TAPS = 12
@@ -40,24 +36,9 @@ FIR_TOL = 1e-5  # of max |ref|, as chip_smoke.py phase 9
 def main(argv: Optional[Sequence[str]] = None) -> Dict[Tuple, Dict[str, float]]:
     """Check and time the versions; return, per (shape, dtype), each label's
     ms per call (the mean of its turns)."""
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("versions", nargs="+", help="LABEL=PATH of a fir_banded.cu")
-    ap.add_argument("--order", default="", help="labels in timing order (default: each "
-                    "label, then the same in reverse)")
-    ap.add_argument("--iters", type=int, default=20)
-    args = ap.parse_args(argv)
-    sources = {label: Path(path) for label, path in (v.split("=", 1) for v in args.versions)}
-    order = args.order.split(",") if args.order else list(sources) + list(sources)[::-1]
-    assert set(order) <= set(sources), (order, list(sources))
-    dev = resolve_device("cuda")
-    libs = cuda_build.build_versions("fir_banded", sources)
-    for label in libs:
-        for line in cuda_build.build_log.get(label, "(built earlier)").splitlines():
-            if "Used" in line or "spill" in line or "built" in line:
-                print(f"{label} ptxas: {line.strip()}")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip()
-    print(f"[{smi}] torch {torch.__version__}, CUDA {torch.version.cuda}")
+    args, sources, order = version_turns.parse(argv, __doc__.splitlines()[0], "fir_banded.cu",
+                                               iters=20)
+    dev, libs, smi = version_turns.build("fir_banded", sources)
     taps = hann_taps(TAPS)
     results = {}
     for shape in SHAPES:
@@ -89,25 +70,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[Tuple, Dict[str, float]]:
             first = next(iter(outs))
             same = {label: torch.equal(outs[first], o) for label, o in outs.items()
                     if label != first}
-            times = []
-            for label in order:
-                for _ in range(2):
-                    call(label)
-                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-                start.record()
-                for _ in range(args.iters):
-                    call(label)
-                end.record()
-                torch.cuda.synchronize()
-                times.append(start.elapsed_time(end) / args.iters)
+            times = version_turns.turns(call, order, args.iters)
             print(f"{list(shape)} {str(dtype)[6:]}: "
                   + " / ".join(f"{label} {t:.4f}" for label, t in zip(order, times))
                   + f" ms; blocks per SM {occupancy}; equal to {first}'s: {same}; max abs err "
                   + ", ".join(f"{label} {e:.3e}" for label, e in errs.items())
                   + f" (tol {FIR_TOL:g}·{float(ref.abs().max()):.3g}) [{smi}]", flush=True)
-            results[shape, str(dtype)[6:]] = {
-                label: float(np.mean([t for lab, t in zip(order, times) if lab == label]))
-                for label in dict.fromkeys(order)}
+            results[shape, str(dtype)[6:]] = version_turns.means(order, times)
             del p, mw, mh, outs, ref
             torch.cuda.empty_cache()
     return results

@@ -140,6 +140,28 @@ def test_bwd_versions_script_needs_a_card(tmp_path):
         bwd_versions.main([f"a={src}"])
 
 
+def test_fir_versions_script_needs_a_card(tmp_path):
+    """The banded kernel's versions script rejects an order with an unknown
+    label and raises before it builds anything when there is no card."""
+    from stylegan3_editing_tpu_torch.scripts import fir_versions
+    src = tmp_path / "fir_banded.cu"
+    src.write_text("")
+    with pytest.raises(AssertionError):
+        fir_versions.main([f"a={src}", "--order", "a,b"])
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fir_versions.main([f"a={src}"])
+
+
+def test_version_turns_mirror_the_order_and_average_each_label():
+    from stylegan3_editing_tpu_torch.scripts import version_turns
+    args, sources, order = version_turns.parse(["a=x/k.cu", "b=y/k.cu"], "d", "k.cu", iters=3)
+    assert order == ["a", "b", "b", "a"] and args.iters == 3
+    assert {label: str(path) for label, path in sources.items()} == {"a": "x/k.cu", "b": "y/k.cu"}
+    assert version_turns.means(order, [1.0, 2.0, 4.0, 3.0]) == {"a": 2.0, "b": 3.0}
+
+
 def test_fir_kernel_wrappers_refuse_cpu_tensors():
     p, taps = torch.zeros((20, 21, 8)), hann_taps(4)
     with pytest.raises(ValueError, match="CUDA"):
