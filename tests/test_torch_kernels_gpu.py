@@ -278,8 +278,10 @@ def test_flrelu_bwd_kernel_raises_on_unsupported_input(cuda_device):
 
 
 # (Qh, Qw, C, taps): Qw, J = Qw - taps + 1 and C off the multiples of 8 and 16
-# (MMA tiles, channel groups), and the probe's own shape.
-FIR_SHAPES = [(20, 21, 8, 12), (37, 29, 45, 4), (76, 76, 128, 12)]
+# (MMA tiles, channel groups), and the probe's own shape. fir_banded cuts J
+# into bands of at most 16 columns; J = 19 makes two of 10 and 9, and C = 44
+# has whole 16-byte fp32 slices in all groups but the last.
+FIR_SHAPES = [(20, 21, 8, 12), (37, 29, 45, 4), (40, 30, 44, 12), (76, 76, 128, 12)]
 FIR_TOL = 1e-5  # of max |ref|: sum order; the split tf32 products keep ~2^-22
 
 
@@ -312,29 +314,94 @@ def test_fir_taps_kernel_matches_plain(cuda_device, shape, dtype):
     _assert_fir_close(got, ref)
 
 
+def _fir_matrices(kind, j_out, qw, i_out, qh, n):
+    """Mw [J, Qw] and Mh [I, Qh] of one kind (numpy fp32)."""
+    if kind == "dense":
+        rng = np.random.RandomState(12)
+        return (rng.uniform(-1, 1, (j_out, qw)).astype(np.float32),
+                rng.uniform(-1, 1, (i_out, qh)).astype(np.float32))
+    if kind == "holed":  # two taps and one 20 columns on: all-zero K steps inside a range
+        out = []
+        for rows, cols in ((j_out, qw), (i_out, qh)):
+            m = banded(rows, cols, hann_taps(2))
+            r = np.arange(rows)[np.arange(rows) + 20 < cols]
+            m[r, r + 20] = 0.5
+            out.append(m)
+        return tuple(out)
+    mw, mh = banded(j_out, qw, hann_taps(n)), banded(i_out, qh, hann_taps(n - 1))
+    if kind == "zero_row":
+        mw[j_out // 2] = 0
+        mh[i_out // 2] = 0
+    return mw, mh
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", FIR_SHAPES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("matrices", ["banded", "dense"])
+@pytest.mark.parametrize("matrices", ["banded", "dense", "holed", "zero_row"])
 def test_fir_banded_kernel_matches_plain(cuda_device, shape, dtype, matrices):
-    """The probe's banded Hann matrices, and dense random ones (the kernel
-    must not rely on the band), with I != J."""
+    """The probe's banded Hann matrices, dense random ones (the kernel must
+    not rely on the band), banded ones with all-zero K steps inside a range
+    and with an all-zero row, with I != J."""
     qh, qw, _, n = shape
     p = _fir_plane(shape, dtype, cuda_device, seed=11)
     j_out, i_out = qw - n + 1, qh - n + 2
-    if matrices == "banded":
-        mw, mh = banded(j_out, qw, hann_taps(n)), banded(i_out, qh, hann_taps(n - 1))
-    else:
-        rng = np.random.RandomState(12)
-        mw = rng.uniform(-1, 1, (j_out, qw)).astype(np.float32)
-        mh = rng.uniform(-1, 1, (i_out, qh)).astype(np.float32)
-    mw, mh = (torch.from_numpy(m).to(cuda_device, p.dtype) for m in (mw, mh))
+    mw, mh = (torch.from_numpy(m).to(cuda_device, p.dtype)
+              for m in _fir_matrices(matrices, j_out, qw, i_out, qh, n))
     before = fir_cuda.launches["fir_banded"]
     got = fir_banded(p, mw, mh)
     assert fir_cuda.launches["fir_banded"] == before + 1
     ref = fir_banded_ref(p, mw, mh)
     torch.cuda.synchronize()
     _assert_fir_close(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fir_banded_kernel_unaligned_plane(cuda_device, dtype):
+    """A contiguous plane that starts off a 16-byte boundary takes element
+    loads, with the same result."""
+    shape = (40, 30, 48, 12)
+    whole = _fir_plane((40 * 30 * 48 + 1, 1, 1, 0), dtype, cuda_device, seed=13).flatten()
+    p = whole[1:].view(shape[:3])
+    assert p.data_ptr() % 16 != 0
+    mw, mh = (torch.from_numpy(m).to(cuda_device, p.dtype)
+              for m in _fir_matrices("banded", 19, 30, 30, 40, 12))
+    got = fir_banded(p, mw, mh)
+    torch.cuda.synchronize()
+    _assert_fir_close(got, fir_banded_ref(p, mw, mh))
+    _assert_fir_close(fir_banded(p.clone(), mw, mh), fir_banded_ref(p, mw, mh))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [0, 1])
+def test_fir_banded_keeps_two_blocks_per_sm_at_the_probe_shape(cuda_device, dtype):
+    """At [76, 76, 16896] with 12 taps, at least two blocks share an SM, so
+    one block's loads overlap another's products."""
+    lib = cuda_build.build()["fir_banded"]
+    assert lib.sg3_fir_banded_blocks_per_sm(76, 76, 65, 65, dtype) >= 2
+    assert lib.sg3_fir_banded_smem_bytes(76, 76, 65, 65, dtype) <= fir_cuda.SMEM_PER_BLOCK
+
+
+@pytest.mark.gpu
+def test_fir_banded_c_entry_refuses_what_the_wrapper_refuses(cuda_device):
+    """Shapes over the limits: the wrapper raises ValueError, the C entries
+    return cudaErrorInvalidValue (1) and launch nothing."""
+    lib = cuda_build.build()["fir_banded"]
+    out = torch.zeros(1, device=cuda_device)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    for qh, qw, j, i in ((20, 129, 118, 9), (150, 21, 10, 139), (20, 140, 129, 9)):
+        p = torch.zeros((qh, qw, 8), device=cuda_device)
+        mw = torch.zeros((j, qw), device=cuda_device)
+        mh = torch.zeros((i, qh), device=cuda_device)
+        with pytest.raises(ValueError):
+            fir_cuda.fir_banded_cuda(p, mw, mh)
+        assert lib.sg3_fir_banded(p.data_ptr(), mw.data_ptr(), mh.data_ptr(), out.data_ptr(), 0,
+                                  qh, qw, 8, j, i, stream) == 1
+        assert lib.sg3_fir_banded_blocks_per_sm(qh, qw, j, i, 0) == -1
+    assert lib.sg3_fir_banded_blocks_per_sm(20, 21, 10, 9, 2) == -1  # no such dtype
+    torch.cuda.synchronize()
+    assert float(out[0]) == 0
 
 
 @pytest.mark.gpu
