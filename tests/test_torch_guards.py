@@ -154,6 +154,22 @@ def test_fir_versions_script_needs_a_card(tmp_path):
         fir_versions.main([f"a={src}"])
 
 
+def test_fir_versions_script_takes_the_tap_kernel(tmp_path):
+    """`--kernel fir_taps` picks the tap-chain kernel; an unknown kernel is a
+    usage error; without a card it raises before it builds anything."""
+    from stylegan3_editing_tpu_torch.scripts import fir_versions
+    src = tmp_path / "fir_taps.cu"
+    src.write_text("")
+    with pytest.raises(SystemExit):
+        fir_versions.main([f"a={src}", "--kernel", "fir_vpu"])
+    with pytest.raises(AssertionError):
+        fir_versions.main([f"a={src}", "--kernel", "fir_taps", "--order", "a,b"])
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fir_versions.main([f"a={src}", "--kernel", "fir_taps"])
+
+
 def test_version_turns_mirror_the_order_and_average_each_label():
     from stylegan3_editing_tpu_torch.scripts import version_turns
     args, sources, order = version_turns.parse(["a=x/k.cu", "b=y/k.cu"], "d", "k.cu", iters=3)
