@@ -11,9 +11,9 @@ Phases (any failure exits non-zero before the result lines):
    memory per block and the tensor-core instructions in the SASS of the
    forward kernel (its down pass on bf16 radial layers), of the backward
    kernel (its dy up pass on bf16 radial layers) and of the banded kernel,
-   and the banded kernel's resident blocks per SM at the probe's shape;
+   and the two probe kernels' resident blocks per SM at [76, 76, 16896];
    it fails if one of the three has no bf16 tensor-core instruction, or if
-   fewer than two banded blocks share an SM;
+   fewer than two blocks of a probe kernel share an SM;
 3. per layer: the kernel against the plain PyTorch version on each of the
    14 filtered-lrelu layers of SG3-R 1024 at full size, batch 1, in the
    layer's dtype (bf16 layers against the plain version in fp32 on the
@@ -197,19 +197,23 @@ def main() -> int:
               f"{libs['filtered_lrelu_fwd'].sg3_flrelu_fwd_smem_bytes(up)} B, backward "
               f"{bwd_smem(up, 1, 1)} B (radial fd, bf16: tensor-core dy up pass), "
               f"{bwd_smem(up, 1, 0)} B (radial fd, fp32), {bwd_smem(up, 0, 0)} B (separable)")
-    qh, qw, _ = FIR_SHAPES[0]
+    qh, qw, c = FIR_SHAPES[1]
     fir_out = (qh - FIR_TAPS + 1, qw - FIR_TAPS + 1)
-    banded_lib = libs["fir_banded"]
+    taps_lib, banded_lib = libs["fir_taps"], libs["fir_banded"]
+    taps_args = (qh, qw, c, FIR_TAPS, FIR_TAPS)
+    taps_blocks = [taps_lib.sg3_fir_taps_blocks_per_sm(*taps_args, dt) for dt in (0, 1)]
     banded_blocks = [banded_lib.sg3_fir_banded_blocks_per_sm(qh, qw, *fir_out[::-1], dt)
                      for dt in (0, 1)]
-    print(f"  dynamic shared memory per block, probe {FIR_TAPS} taps: fir_taps "
-          f"{libs['fir_taps'].sg3_fir_taps_smem_bytes(FIR_TAPS)} B; fir_banded "
-          f"[{qh}, {qw}] -> {list(fir_out)}: "
+    print(f"  dynamic shared memory per block, probe {FIR_TAPS} taps, [{qh}, {qw}, {c}] -> "
+          f"{list(fir_out)}: fir_taps {taps_lib.sg3_fir_taps_smem_bytes(*taps_args, 0)} B "
+          f"(fp32), {taps_lib.sg3_fir_taps_smem_bytes(*taps_args, 1)} B (bf16); fir_banded "
           f"{banded_lib.sg3_fir_banded_smem_bytes(qh, qw, *fir_out[::-1], 0)} B (fp32), "
           f"{banded_lib.sg3_fir_banded_smem_bytes(qh, qw, *fir_out[::-1], 1)} B (bf16); "
-          f"fir_banded blocks per SM {banded_blocks[0]} (fp32), {banded_blocks[1]} (bf16)")
-    if min(banded_blocks) < 2:
-        raise SystemExit("fir_banded keeps fewer than 2 blocks per SM at the probe's shape")
+          f"blocks per SM: fir_taps {taps_blocks[0]} (fp32), {taps_blocks[1]} (bf16), "
+          f"fir_banded {banded_blocks[0]} (fp32), {banded_blocks[1]} (bf16)")
+    for name, blocks in (("fir_taps", taps_blocks), ("fir_banded", banded_blocks)):
+        if min(blocks) < 2:
+            raise SystemExit(f"{name} keeps fewer than 2 blocks per SM at the probe's shape")
     for name in ("filtered_lrelu_fwd", "filtered_lrelu_bwd", "fir_banded"):
         hmma = cuda_build.sass_mma_counts(name)
         print(f"  sass {name}: tensor-core instructions {dict(hmma)} (mma.sync)"

@@ -11,22 +11,31 @@
 // Bound on the card: at 12 taps the two chains do ~50 useful FLOP per
 // output against 8 (fp32) or 6 (bf16) bytes of input and output, under the
 // card's ridge of ~20 FLOP/B, so the floor is bytes(in + out) / 3.35 TB/s.
-// What the design does about it:
-// - channels run on neighbouring threads (the layout is HWC), so a warp's
-//   load or store of one pixel is 32 contiguous channels;
-// - a block of 16 warps holds a tile of kTi x kTj outputs of kCb channels;
-//   the W chain of the tile's kTi + Th - 1 input rows goes to shared memory
-//   and the H chain reads it from there, so only the tile's halo is read
-//   twice (from L2) and p and o cross device memory once. Two blocks fit an
-//   SM (88 KB each at 12 taps; the launch bounds cap registers at 64 so
-//   that they do);
-// - both chains are register-blocked: a thread slides a window of kR = 16
-//   samples along its run (a whole tile row of the W chain) and feeds kR
-//   outputs from each sample it loads, so a tap costs kR FMAs, one load and
-//   one uniform read of the tap (the taps ride in the kernel's parameter
-//   space); the tap loop is unrolled by kR, which turns the window's shifts
-//   into register renames.
-// TMA and pipelining are left for later work.
+// What the design does about it: the plane is read once, with loads always
+// in flight, and a block's threads work on their own with one barrier a row.
+// - A block owns a group of kCb = 16 channels (64 or 32 bytes of a pixel:
+//   whole 32-byte sectors), a band of output rows and a strip of at most
+//   kThreads / 4 output columns, and walks the band's input rows from top to
+//   bottom once: a thread owns one output column and one 4-channel slice.
+// - Input rows arrive by 16-byte cp.async copies into a ring of kStages row
+//   stages in shared memory: rows q + 1 .. q + kStages - 1 are in flight
+//   while row q is used. Where a pixel's channels are not whole aligned
+//   16-byte slices (C * size % 16 != 0, or a plane off a 16-byte boundary),
+//   the block fills the same ring with element loads.
+// - For each row a thread sums its column's W chain from the stage (Tw
+//   shared reads of 4 channels) into t, then feeds t to the H chains of the
+//   Th output rows that need it. With Th = kRegTh (the probe's 12) their
+//   running sums stay in registers, a ring of Th float4s rotated by the row
+//   index (a switch on q % Th makes every index static): output row i
+//   takes th[k] * t[i + k] at row i + k, so its sum runs in tap order, and
+//   it is stored as soon as row i + Th - 1 has landed. For other Th the
+//   thread keeps its own ring of Th values of t in shared memory and sums
+//   output row i from it once row i + Th - 1 has landed.
+// - The host sizes the plan from the shape (`make_plan`): strips of at
+//   most kThreads / 4 columns whose stages (and ring of t) fit kSmemTarget,
+//   each with a Tw - 1 halo of input columns; and, where the channel groups
+//   and strips give too few blocks to fill the card, row bands with a
+//   Th - 1 halo of input rows. Bands and strips split the output evenly.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC -o libfir_taps.so fir_taps.cu
@@ -35,19 +44,28 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma.cuh"  // cp_async_16, cp_async_commit, cp_async_wait_group
+
 namespace {
 
-constexpr int kThreads = 512, kWarps = kThreads / 32;
-constexpr int kCb = 32;  // channels per block, one per lane
-constexpr int kTj = 16;  // output columns per tile
-constexpr int kTi = 32;  // output rows per tile
-constexpr int kR = 16;   // outputs per thread along a chain
+constexpr int kThreads = 128;        // at most, a block: a thread per (column, slice) of a strip
+constexpr int kMinBlocks = 4;        // resident blocks per SM that the registers must allow
+constexpr int kCb = 16;              // channels per block
+constexpr int kQuads = kCb / 4;      // 4-channel slices of a pixel: threads per column
+constexpr int kStages = 8;           // input rows in the ring
+constexpr int kRegTh = 12;           // H taps whose running sums stay in registers
 constexpr int kMaxTaps = 64;
+constexpr int kSmemTarget = 113'664;  // bytes per block: two blocks share an SM
+constexpr int kFillBlocks = 4 * 132;  // blocks that fill an H100 four deep
+constexpr int kMinBand = 4;           // output rows of a band, at least (unless fewer)
 
-struct Geometry {
-    int qw, c;           // input plane [qh, qw, c]
-    int out_h, out_w;    // output [out_h, out_w, c]
-    int tiles_w;
+struct Plan {
+    int qw, c, out_h, out_w;
+    int strips, bands;  // column strips and row bands of the output, split evenly
+    int strip_w;        // widest strip
+    int threads;        // the block: strip_w * kQuads threads, whole warps
+    int vec;            // whole aligned 16-byte channel slices: cp.async
+    int vec_out;        // float4 stores of whole 4-channel slices
 };
 
 struct Taps {
@@ -55,88 +73,215 @@ struct Taps {
     int tw, th;
 };
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
+template <typename T>
+__device__ __forceinline__ float4 load4(const T* s);
+template <>
+__device__ __forceinline__ float4 load4<float>(const float* s) {
+    return *reinterpret_cast<const float4*>(s);
+}
+template <>  // four bf16 channels in their order: low half first
+__device__ __forceinline__ float4 load4<__nv_bfloat16>(const __nv_bfloat16* s) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(s);
+    return make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u),
+                       __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
 }
 
-// acc[r] = sum_k f[k] * src[(r + k) * stride] for r < kR, k < nt, in tap
-// order; samples at or past `avail` read as zero.
-template <typename T>
-__device__ __forceinline__ void chain(const float* f, int nt, const T* src, size_t stride,
-                                      int avail, float (&acc)[kR]) {
-    avail = min(avail, kR + nt - 1);
-    float w[kR];
+__device__ __forceinline__ void fma4(float4& a, float f, const float4& x) {
+    a.x = fmaf(f, x.x, a.x);
+    a.y = fmaf(f, x.y, a.y);
+    a.z = fmaf(f, x.z, a.z);
+    a.w = fmaf(f, x.w, a.w);
+}
+
+// First element of part k of n of [0, len): the parts differ by one at most.
+__host__ __device__ __forceinline__ int split_at(int k, int n, int len) {
+    return int((long long)k * len / n);
+}
+
+// Row q = u (mod kTh) of the H chains in registers: acc[s] holds output row
+// i = s (mod kTh), which takes tap q - i. Output row q - kTh + 1 is then
+// whole: it is returned and its slot cleared for row q + 1.
+template <int kTh, int u>
+__device__ __forceinline__ float4 h_row(float4 (&acc)[kTh], const float (&th)[kTh], float4 t) {
 #pragma unroll
-    for (int r = 0; r < kR; ++r) {
-        w[r] = r < avail ? load_f32(src + r * stride) : 0.f;
-        acc[r] = 0.f;
-    }
-#pragma unroll (kR)
-    for (int k = 0; k < nt; ++k) {
-        const float fk = f[k];
-#pragma unroll
-        for (int r = 0; r < kR; ++r) acc[r] = fmaf(fk, w[r], acc[r]);
-#pragma unroll
-        for (int r = 0; r + 1 < kR; ++r) w[r] = w[r + 1];
-        w[kR - 1] = k + kR < avail ? load_f32(src + (k + kR) * stride) : 0.f;
+    for (int k = 0; k < kTh; ++k) fma4(acc[(u - k + kTh) % kTh], th[k], t);
+    const float4 done = acc[(u + 1) % kTh];
+    acc[(u + 1) % kTh] = make_float4(0.f, 0.f, 0.f, 0.f);
+    return done;
+}
+
+template <int kTh, int u = kTh - 1>
+__device__ __forceinline__ float4 h_row_at(int q_mod, float4 (&acc)[kTh], const float (&th)[kTh],
+                                           float4 t) {
+    if constexpr (u == 0) {
+        return h_row<kTh, 0>(acc, th, t);
+    } else {
+        return q_mod == u ? h_row<kTh, u>(acc, th, t) : h_row_at<kTh, u - 1>(q_mod, acc, th, t);
     }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
+// kTh = kRegTh: the H chains' running sums in registers; kTh = 0: any Th,
+// each thread's ring of t in shared memory.
+template <typename T, int kTh>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 fir_taps_kernel(const T* __restrict__ p, float* __restrict__ out,
-                const __grid_constant__ Geometry g, const __grid_constant__ Taps taps) {
-    extern __shared__ float t_s[];  // W chain of the tile: [rows][kTj][kCb]
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int tile_i = blockIdx.x / g.tiles_w, tile_j = blockIdx.x - tile_i * g.tiles_w;
-    const int i0 = tile_i * kTi, j0 = tile_j * kTj;
-    const int ch = blockIdx.y * kCb + lane;
-    const bool ch_ok = ch < g.c;
-    const int out_rows = min(kTi, g.out_h - i0);
-    const int rows = out_rows + taps.th - 1;  // input rows the tile needs
+                const __grid_constant__ Plan g, const __grid_constant__ Taps taps) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int tid = threadIdx.x;
+    const int strip = blockIdx.x % g.strips;
+    const int band = (blockIdx.x / g.strips) % g.bands;
+    const int c0 = blockIdx.x / (g.strips * g.bands) * kCb;
+    const int j0 = split_at(strip, g.strips, g.out_w);
+    const int cols = split_at(strip + 1, g.strips, g.out_w) - j0;  // output columns
+    const int i0 = split_at(band, g.bands, g.out_h);
+    const int out_rows = split_at(band + 1, g.bands, g.out_h) - i0;
+    const int th = taps.th;
+    const int rows = out_rows + th - 1;       // input rows the band reads
+    const int cols_in = cols + taps.tw - 1;   // input columns the strip reads
+    const int nch = min(kCb, g.c - c0);
+    const int nquads = (nch + 3) / 4;
+    const int quad = tid % nquads, j = tid / nquads;  // this thread's slice and column
+    const bool active = j < cols;
+    const int pitch = (g.strip_w + taps.tw - 1) * kCb;  // elements of a stage row
+    T* stage = reinterpret_cast<T*>(smem);
+    // kTh = 0: each thread's ring of t, [th][g.strip_w * kQuads] float4s.
+    float4* tring = reinterpret_cast<float4*>(smem + sizeof(T) * kStages * pitch);
+    const int ring_w = g.strip_w * kQuads;
 
-    // 1. W chain: warps over (row, run of kR columns), lanes over channels.
-    for (int item = warp; item < rows * (kTj / kR); item += kWarps) {
-        const int row = item / (kTj / kR), jr = item % (kTj / kR) * kR;
-        if (j0 + jr >= g.out_w) continue;
-        float acc[kR];
-        chain(taps.w, taps.tw, p + (size_t(i0 + row) * g.qw + j0 + jr) * g.c + ch, size_t(g.c),
-              ch_ok ? g.qw - (j0 + jr) : 0, acc);
+    // Row r of the band into stage r % kStages, as one cp.async group.
+    auto fetch = [&](int r) {
+        if (r < rows) {
+            T* dst = stage + (r % kStages) * pitch;
+            const T* src = p + (size_t(i0 + r) * g.qw + j0) * g.c + c0;
+            if (g.vec) {
+                const int per_px = nch * int(sizeof(T)) / 16;
+                for (int k = tid; k < cols_in * per_px; k += g.threads) {
+                    const int px = k / per_px, part = k - px * per_px;
+                    cp_async_16(reinterpret_cast<unsigned char*>(dst + px * kCb) + 16 * part,
+                                reinterpret_cast<const unsigned char*>(src + size_t(px) * g.c) +
+                                    16 * part);
+                }
+            } else {
+                for (int k = tid; k < cols_in * kCb; k += g.threads) {
+                    const int px = k / kCb, e = k - px * kCb;
+                    dst[k] = e < nch ? src[size_t(px) * g.c + e] : T(0.f);
+                }
+            }
+        }
+        cp_async_commit();
+    };
+
+    constexpr int kRing = kTh > 0 ? kTh : 1;
+    float4 acc[kRing];
+    float hk[kRing];
 #pragma unroll
-        for (int r = 0; r < kR; ++r) t_s[(row * kTj + jr + r) * kCb + lane] = acc[r];
+    for (int k = 0; k < kRing; ++k) {
+        acc[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+        hk[k] = taps.h[k];
     }
-    __syncthreads();
+    float* dst = out + (size_t(i0) * g.out_w + j0 + j) * g.c + c0 + 4 * quad;  // output row i0
+    const bool whole = g.vec_out && 4 * quad + 4 <= nch;
 
-    // 2. H chain from shared memory: warps over (column, run of kR rows).
-    for (int item = warp; item < kTj * (kTi / kR); item += kWarps) {
-        const int j = item % kTj, ir = item / kTj * kR;
-        if (j0 + j >= g.out_w || ir >= out_rows) continue;
-        float acc[kR];
-        chain(taps.h, taps.th, t_s + (ir * kTj + j) * kCb + lane, size_t(kTj * kCb),
-              rows - ir, acc);
-        if (!ch_ok) continue;
+    for (int r = 0; r < kStages - 1; ++r) fetch(r);
+    for (int q = 0; q < rows; ++q) {
+        cp_async_wait_group<kStages - 2>();  // row q has landed (this thread's copies)
+        __syncthreads();  // ... everyone's; and everyone is done with row q - 1's stage
+        fetch(q + kStages - 1);
+        if (!active) continue;
+
+        // W chain of row q at column j.
+        const T* src = stage + (q % kStages) * pitch + j * kCb + 4 * quad;
+        float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+        for (int k = 0; k < taps.tw; ++k) fma4(t, taps.w[k], load4(src + k * kCb));
+
+        // H chains: output row i = q - th + 1 is whole after row q.
+        const int i = q - th + 1;
+        float4 o;
+        if constexpr (kTh > 0) {
+            o = h_row_at<kTh>(q % kTh, acc, hk, t);
+        } else {
+            tring[(q % th) * ring_w + tid] = t;
+            if (i < 0) continue;
+            o = make_float4(0.f, 0.f, 0.f, 0.f);
+            int slot = i % th;
+            for (int k = 0; k < th; ++k) {
+                fma4(o, taps.h[k], tring[slot * ring_w + tid]);
+                slot = slot + 1 == th ? 0 : slot + 1;
+            }
+        }
+        if (i < 0) continue;
+        float* d = dst + size_t(i) * g.out_w * g.c;
+        if (whole) {
+            *reinterpret_cast<float4*>(d) = o;
+        } else {
+            const float v[4] = {o.x, o.y, o.z, o.w};
 #pragma unroll
-        for (int r = 0; r < kR; ++r) {
-            if (ir + r < out_rows)
-                out[(size_t(i0 + ir + r) * g.out_w + j0 + j) * g.c + ch] = acc[r];
+            for (int e = 0; e < 4; ++e)
+                if (4 * quad + e < nch) d[e] = v[e];
         }
     }
 }
 
-size_t smem_bytes(int th) { return sizeof(float) * size_t(kTi + th - 1) * kTj * kCb; }
+bool valid(int qh, int qw, int c, int tw, int th, int dtype) {
+    return tw >= 1 && th >= 1 && tw <= kMaxTaps && th <= kMaxTaps && qw >= tw && qh >= th &&
+           c >= 1 && (dtype == 0 || dtype == 1);
+}
+
+// Stages of strip_w + tw - 1 pixels, and the threads' rings of th values
+// of t where the H chains do not run in registers.
+size_t smem_for(int strip_w, int tw, int th, int esize) {
+    return size_t(kStages) * (strip_w + tw - 1) * kCb * esize +
+           (th == kRegTh ? 0 : size_t(th) * strip_w * kCb * sizeof(float));
+}
+
+Plan make_plan(int qh, int qw, int c, int tw, int th, int esize) {
+    Plan g{qw, c, qh - th + 1, qw - tw + 1, 1, 1, 0, 0, 0, 0};
+    // The widest strip a block's threads cover whose stages fit kSmemTarget.
+    const long long fit = ((long long)kSmemTarget - (long long)smem_for(0, tw, th, esize)) /
+                          (long long)(smem_for(1, tw, th, esize) - smem_for(0, tw, th, esize));
+    const int widest = int(fit < 1 ? 1 : fit < kThreads / kQuads ? fit : kThreads / kQuads);
+    g.strips = (g.out_w + widest - 1) / widest;
+    g.strip_w = (g.out_w + g.strips - 1) / g.strips;
+    g.threads = (g.strip_w * kQuads + 31) / 32 * 32;
+    // Row bands, where channel groups and strips give too few blocks.
+    const long long groups = (c + kCb - 1) / kCb;
+    const long long want = (kFillBlocks + groups * g.strips - 1) / (groups * g.strips);
+    const long long most = (g.out_h + kMinBand - 1) / kMinBand;
+    g.bands = int(want < most ? want : most);
+    return g;
+}
 
 template <typename T>
-int launch(const void* p, void* out, const Geometry& g, const Taps& taps, cudaStream_t stream) {
-    auto kernel = fir_taps_kernel<T>;
-    const size_t smem = smem_bytes(taps.th);
+auto kernel_for(int th) {
+    return th == kRegTh ? fir_taps_kernel<T, kRegTh> : fir_taps_kernel<T, 0>;
+}
+
+template <typename T>
+int blocks_per_sm(const Plan& g, int tw, int th) {
+    const auto kernel = kernel_for<T>(th);
+    const size_t smem = smem_for(g.strip_w, tw, th, sizeof(T));
+    int n = 0;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           int(smem));
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, g.threads, smem);
+    return err == cudaSuccess ? n : -int(err);
+}
+
+template <typename T>
+int launch(const void* p, void* out, Plan g, const Taps& taps, cudaStream_t stream) {
+    const auto kernel = kernel_for<T>(taps.th);
+    const size_t smem = smem_for(g.strip_w, taps.tw, taps.th, sizeof(T));
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (err != cudaSuccess) return int(err);
-    const int tiles_h = (g.out_h + kTi - 1) / kTi;
-    dim3 grid(unsigned(tiles_h * g.tiles_w), unsigned((g.c + kCb - 1) / kCb));
-    kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(p),
-                                             static_cast<float*>(out), g, taps);
+    g.vec = reinterpret_cast<uintptr_t>(p) % 16 == 0 && (size_t(g.c) * sizeof(T)) % 16 == 0;
+    g.vec_out = reinterpret_cast<uintptr_t>(out) % 16 == 0 && g.c % 4 == 0;
+    const long long blocks = (long long)((g.c + kCb - 1) / kCb) * g.bands * g.strips;
+    if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidValue);
+    kernel<<<unsigned(blocks), g.threads, smem, stream>>>(static_cast<const T*>(p),
+                                                         static_cast<float*>(out), g, taps);
     return int(cudaGetLastError());
 }
 
@@ -144,8 +289,22 @@ int launch(const void* p, void* out, const Geometry& g, const Taps& taps, cudaSt
 
 extern "C" {
 
-// Dynamic shared memory of one block for th taps along H.
-size_t sg3_fir_taps_smem_bytes(int th) { return smem_bytes(th); }
+// Dynamic shared memory of one block for these shapes, dtype 0 = float32,
+// 1 = bfloat16 (0 for shapes the launch refuses).
+size_t sg3_fir_taps_smem_bytes(int qh, int qw, int c, int tw, int th, int dtype) {
+    if (!valid(qh, qw, c, tw, th, dtype)) return 0;
+    const int esize = dtype == 0 ? 4 : 2;
+    return smem_for(make_plan(qh, qw, c, tw, th, esize).strip_w, tw, th, esize);
+}
+
+// Blocks of the launch for these shapes that the card keeps resident on one
+// SM at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus the
+// cudaError_t; shapes the launch refuses give -cudaErrorInvalidValue.
+int sg3_fir_taps_blocks_per_sm(int qh, int qw, int c, int tw, int th, int dtype) {
+    if (!valid(qh, qw, c, tw, th, dtype)) return -int(cudaErrorInvalidValue);
+    return dtype == 0 ? blocks_per_sm<float>(make_plan(qh, qw, c, tw, th, 4), tw, th)
+                      : blocks_per_sm<__nv_bfloat16>(make_plan(qh, qw, c, tw, th, 2), tw, th);
+}
 
 // p: [qh, qw, c] device tensor, dtype 0 = float32, 1 = bfloat16. taps_w,
 // taps_h: host float32 taps (tw <= qw and th <= qh, at most 64 each). out:
@@ -153,20 +312,15 @@ size_t sg3_fir_taps_smem_bytes(int th) { return smem_bytes(th); }
 // cudaError_t of the launch (0 on success).
 int sg3_fir_taps(const void* p, const float* taps_w, const float* taps_h, void* out,
                  int dtype, int qh, int qw, int c, int tw, int th, void* stream) {
-    if (tw < 1 || th < 1 || tw > kMaxTaps || th > kMaxTaps || qw < tw || qh < th || c < 1 ||
-        (dtype != 0 && dtype != 1)) {
-        return int(cudaErrorInvalidValue);
-    }
-    Geometry g{qw, c, qh - th + 1, qw - tw + 1, 0};
-    g.tiles_w = (g.out_w + kTj - 1) / kTj;
+    if (!valid(qh, qw, c, tw, th, dtype)) return int(cudaErrorInvalidValue);
     Taps taps{};
     for (int k = 0; k < tw; ++k) taps.w[k] = taps_w[k];
     for (int k = 0; k < th; ++k) taps.h[k] = taps_h[k];
     taps.tw = tw;
     taps.th = th;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return dtype == 0 ? launch<float>(p, out, g, taps, s)
-                      : launch<__nv_bfloat16>(p, out, g, taps, s);
+    return dtype == 0 ? launch<float>(p, out, make_plan(qh, qw, c, tw, th, 4), taps, s)
+                      : launch<__nv_bfloat16>(p, out, make_plan(qh, qw, c, tw, th, 2), taps, s);
 }
 
 }  // extern "C"

@@ -52,7 +52,8 @@ KERNELS: Dict[str, Kernel] = {
         "sg3_flrelu_bwd_smem_bytes": (_SIZE, [_I] * 3)}),
     "fir_taps": Kernel(_CSRC / "fir_taps.cu", {
         "sg3_fir_taps": (_I, [_P] * 4 + [_I] * 6 + [_P]),
-        "sg3_fir_taps_smem_bytes": (_SIZE, [_I])}),
+        "sg3_fir_taps_smem_bytes": (_SIZE, [_I] * 6),
+        "sg3_fir_taps_blocks_per_sm": (_I, [_I] * 6)}),
     "fir_banded": Kernel(_CSRC / "fir_banded.cu", {
         "sg3_fir_banded": (_I, [_P] * 4 + [_I] * 6 + [_P]),
         "sg3_fir_banded_smem_bytes": (_SIZE, [_I] * 5),

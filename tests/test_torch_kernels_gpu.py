@@ -314,6 +314,63 @@ def test_fir_taps_kernel_matches_plain(cuda_device, shape, dtype):
     _assert_fir_close(got, ref)
 
 
+# The tap kernel's own edges (Qh, Qw, C, Tw, Th, offset of the plane in
+# elements): 64 and 1 taps, a one-row and a one-column output, strips of a
+# wide row at 64 taps, and C = 45 (and the probe's C) on a plane that starts
+# off a 16-byte boundary, which takes element loads.
+FIR_TAPS_EDGES = [(70, 70, 16, 64, 61, 0), (70, 70, 16, 1, 1, 0), (9, 30, 16, 5, 9, 0),
+                  (66, 40, 17, 40, 3, 0), (70, 2000, 16, 64, 64, 0), (40, 30, 45, 12, 9, 1),
+                  (76, 76, 128, 12, 12, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("edge", FIR_TAPS_EDGES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fir_taps_kernel_edges_match_plain(cuda_device, edge, dtype):
+    qh, qw, c, tw, th, offset = edge
+    whole = _fir_plane((qh * qw * c + offset, 1, 1, 0), dtype, cuda_device, seed=14).flatten()
+    p = whole[offset:].view(qh, qw, c)
+    assert (p.data_ptr() % 16 != 0) == (offset != 0)
+    rng = np.random.RandomState(15)
+    taps_w = rng.uniform(0, 1, tw).astype(np.float32)
+    taps_h = rng.uniform(0, 1, th).astype(np.float32)
+    got = fir_taps(p, taps_w, taps_h)
+    torch.cuda.synchronize()
+    _assert_fir_close(got, fir_taps_ref(p, taps_w, taps_h))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [0, 1])
+def test_fir_taps_keeps_two_blocks_per_sm_at_the_probe_shape(cuda_device, dtype):
+    """At [76, 76, 16896] with 12 taps, at least two blocks share an SM, so
+    one block's copies overlap another's chains."""
+    lib = cuda_build.build()["fir_taps"]
+    assert lib.sg3_fir_taps_blocks_per_sm(76, 76, 16896, 12, 12, dtype) >= 2
+    assert 0 < lib.sg3_fir_taps_smem_bytes(76, 76, 16896, 12, 12, dtype) <= fir_cuda.SMEM_PER_BLOCK
+
+
+@pytest.mark.gpu
+def test_fir_taps_c_entry_refuses_what_the_wrapper_refuses(cuda_device):
+    """Taps over 64, or more than the plane is wide or high: the wrapper
+    raises ValueError, the C entries return cudaErrorInvalidValue (1), -1
+    blocks per SM and 0 bytes, and launch nothing."""
+    lib = cuda_build.build()["fir_taps"]
+    out = torch.zeros(1, device=cuda_device)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    for qh, qw, tw, th in ((70, 70, 65, 4), (70, 70, 4, 65), (20, 21, 22, 4), (20, 21, 4, 21)):
+        p = torch.zeros((qh, qw, 8), device=cuda_device)
+        taps_w, taps_h = np.ones(tw, np.float32), np.ones(th, np.float32)
+        with pytest.raises(ValueError):
+            fir_cuda.fir_taps_cuda(p, taps_w, taps_h)
+        assert lib.sg3_fir_taps(p.data_ptr(), taps_w.ctypes.data, taps_h.ctypes.data,
+                                out.data_ptr(), 0, qh, qw, 8, tw, th, stream) == 1
+        assert lib.sg3_fir_taps_blocks_per_sm(qh, qw, 8, tw, th, 0) == -1
+        assert lib.sg3_fir_taps_smem_bytes(qh, qw, 8, tw, th, 0) == 0
+    assert lib.sg3_fir_taps_blocks_per_sm(20, 21, 8, 4, 4, 2) == -1  # no such dtype
+    torch.cuda.synchronize()
+    assert float(out[0]) == 0
+
+
 def _fir_matrices(kind, j_out, qw, i_out, qh, n):
     """Mw [J, Qw] and Mh [I, Qh] of one kind (numpy fp32)."""
     if kind == "dense":
