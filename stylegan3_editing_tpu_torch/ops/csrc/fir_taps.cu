@@ -17,11 +17,16 @@
 //   whole 32-byte sectors), a band of output rows and a strip of at most
 //   kThreads / 4 output columns, and walks the band's input rows from top to
 //   bottom once: a thread owns one output column and one 4-channel slice.
-// - Input rows arrive by 16-byte cp.async copies into a ring of kStages row
-//   stages in shared memory: rows q + 1 .. q + kStages - 1 are in flight
-//   while row q is used. Where a pixel's channels are not whole aligned
-//   16-byte slices (C * size % 16 != 0, or a plane off a 16-byte boundary),
-//   the block fills the same ring with element loads.
+// - Input rows arrive by TMA (cp.async.bulk.tensor): thread 0 copies one
+//   row of the strip, its kCb channels by strip_w + Tw - 1 pixels (zeros
+//   past the plane), into a ring of kStages 128-byte-aligned row stages in
+//   shared memory, each with an mbarrier that the copy completes; rows
+//   q + 1 .. q + kStages - 1 are in flight while row q is used. The
+//   threads issue no copies: when each issued its own 16-byte cp.async
+//   copies, issuing them stalled the threads for 35-40 % of their cycles.
+//   Where a pixel's channels are not whole aligned 16-byte slices
+//   (C * size % 16 != 0, or a plane off a 16-byte boundary), the block
+//   fills the same ring with element loads.
 // - For each row a thread sums its column's W chain from the stage (Tw
 //   shared reads of 4 channels) into t, then feeds t to the H chains of the
 //   Th output rows that need it. With Th = kRegTh (the probe's 12) their
@@ -40,11 +45,11 @@
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC -o libfir_taps.so fir_taps.cu
 
+#include <cuda.h>  // CUtensorMap
+#include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include "mma.cuh"  // cp_async_16, cp_async_commit, cp_async_wait_group
 
 namespace {
 
@@ -58,13 +63,15 @@ constexpr int kMaxTaps = 64;
 constexpr int kSmemTarget = 113'664;  // bytes per block: two blocks share an SM
 constexpr int kFillBlocks = 4 * 132;  // blocks that fill an H100 four deep
 constexpr int kMinBand = 4;           // output rows of a band, at least (unless fewer)
+constexpr int kBarBytes = 128;        // the stages' mbarriers, before the 128-byte-aligned stages
 
 struct Plan {
     int qw, c, out_h, out_w;
     int strips, bands;  // column strips and row bands of the output, split evenly
     int strip_w;        // widest strip
     int threads;        // the block: strip_w * kQuads threads, whole warps
-    int vec;            // whole aligned 16-byte channel slices: cp.async
+    int pitch;          // bytes of a stage: strip_w + tw - 1 pixels, to 128 bytes
+    int vec;            // whole aligned 16-byte channel slices: rows by TMA
     int vec_out;        // float4 stores of whole 4-channel slices
 };
 
@@ -91,6 +98,35 @@ __device__ __forceinline__ void fma4(float4& a, float f, const float4& x) {
     a.y = fmaf(f, x.y, a.y);
     a.z = fmaf(f, x.z, a.z);
     a.w = fmaf(f, x.w, a.w);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Arm a stage's mbarrier for `bytes` and copy the box at (x, y, z) of the
+// tensor map into the stage; the copy completes the barrier's phase.
+__device__ __forceinline__ void tma_row(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                        int bytes, int x, int y, int z) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+    asm volatile("cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+                 "[%0], [%1, {%2, %3, %4}], [%5];"
+                 ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
+                 "r"(z), "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    uint32_t done = 0;
+    while (!done) {
+        asm volatile("{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; "
+                     "selp.u32 %0, 1, 0, p; }"
+                     : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+    }
 }
 
 // First element of part k of n of [0, len): the parts differ by one at most.
@@ -125,8 +161,9 @@ __device__ __forceinline__ float4 h_row_at(int q_mod, float4 (&acc)[kTh], const 
 template <typename T, int kTh>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 fir_taps_kernel(const T* __restrict__ p, float* __restrict__ out,
-                const __grid_constant__ Plan g, const __grid_constant__ Taps taps) {
-    extern __shared__ __align__(16) unsigned char smem[];
+                const __grid_constant__ Plan g, const __grid_constant__ Taps taps,
+                const __grid_constant__ CUtensorMap rows_map) {
+    extern __shared__ __align__(128) unsigned char smem[];
     const int tid = threadIdx.x;
     const int strip = blockIdx.x % g.strips;
     const int band = (blockIdx.x / g.strips) % g.bands;
@@ -142,33 +179,33 @@ fir_taps_kernel(const T* __restrict__ p, float* __restrict__ out,
     const int nquads = (nch + 3) / 4;
     const int quad = tid % nquads, j = tid / nquads;  // this thread's slice and column
     const bool active = j < cols;
-    const int pitch = (g.strip_w + taps.tw - 1) * kCb;  // elements of a stage row
-    T* stage = reinterpret_cast<T*>(smem);
+    const int pitch = g.pitch / int(sizeof(T));  // elements of a stage
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem);  // one mbarrier a stage
+    T* stage = reinterpret_cast<T*>(smem + kBarBytes);
     // kTh = 0: each thread's ring of t, [th][g.strip_w * kQuads] float4s.
-    float4* tring = reinterpret_cast<float4*>(smem + sizeof(T) * kStages * pitch);
+    float4* tring = reinterpret_cast<float4*>(smem + kBarBytes + kStages * g.pitch);
     const int ring_w = g.strip_w * kQuads;
+    const int box_bytes = (g.strip_w + taps.tw - 1) * kCb * int(sizeof(T));
+    if (g.vec && tid == 0) {
+        for (int s = 0; s < kStages; ++s) mbar_init(&bars[s]);
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
 
-    // Row r of the band into stage r % kStages, as one cp.async group.
+    // Row r of the band into stage r % kStages: one TMA copy of the strip's
+    // box (thread 0), or element loads by every thread.
     auto fetch = [&](int r) {
-        if (r < rows) {
-            T* dst = stage + (r % kStages) * pitch;
-            const T* src = p + (size_t(i0 + r) * g.qw + j0) * g.c + c0;
-            if (g.vec) {
-                const int per_px = nch * int(sizeof(T)) / 16;
-                for (int k = tid; k < cols_in * per_px; k += g.threads) {
-                    const int px = k / per_px, part = k - px * per_px;
-                    cp_async_16(reinterpret_cast<unsigned char*>(dst + px * kCb) + 16 * part,
-                                reinterpret_cast<const unsigned char*>(src + size_t(px) * g.c) +
-                                    16 * part);
-                }
-            } else {
-                for (int k = tid; k < cols_in * kCb; k += g.threads) {
-                    const int px = k / kCb, e = k - px * kCb;
-                    dst[k] = e < nch ? src[size_t(px) * g.c + e] : T(0.f);
-                }
-            }
+        if (r >= rows) return;
+        T* dst = stage + (r % kStages) * pitch;
+        if (g.vec) {
+            if (tid == 0) tma_row(dst, &rows_map, &bars[r % kStages], box_bytes, c0, j0, i0 + r);
+            return;
         }
-        cp_async_commit();
+        const T* src = p + (size_t(i0 + r) * g.qw + j0) * g.c + c0;
+        for (int k = tid; k < cols_in * kCb; k += g.threads) {
+            const int px = k / kCb, e = k - px * kCb;
+            dst[k] = e < nch ? src[size_t(px) * g.c + e] : T(0.f);
+        }
     };
 
     constexpr int kRing = kTh > 0 ? kTh : 1;
@@ -184,10 +221,10 @@ fir_taps_kernel(const T* __restrict__ p, float* __restrict__ out,
 
     for (int r = 0; r < kStages - 1; ++r) fetch(r);
     for (int q = 0; q < rows; ++q) {
-        cp_async_wait_group<kStages - 2>();  // row q has landed (this thread's copies)
-        __syncthreads();  // ... everyone's; and everyone is done with row q - 1's stage
+        __syncthreads();  // everyone is done with row q - 1's stage (and sees element loads)
         fetch(q + kStages - 1);
         if (!active) continue;
+        if (g.vec) mbar_wait(&bars[q % kStages], (q / kStages) & 1);  // row q has landed
 
         // W chain of row q at column j.
         const T* src = stage + (q % kStages) * pitch + j * kCb + 4 * quad;
@@ -228,22 +265,27 @@ bool valid(int qh, int qw, int c, int tw, int th, int dtype) {
            c >= 1 && (dtype == 0 || dtype == 1);
 }
 
-// Stages of strip_w + tw - 1 pixels, and the threads' rings of th values
-// of t where the H chains do not run in registers.
+// Bytes of a stage: strip_w + tw - 1 pixels of kCb channels, to 128 bytes.
+int pitch_for(int strip_w, int tw, int esize) {
+    return ((strip_w + tw - 1) * kCb * esize + 127) / 128 * 128;
+}
+
+// The stages' mbarriers, the stages, and the threads' rings of th values of
+// t where the H chains do not run in registers.
 size_t smem_for(int strip_w, int tw, int th, int esize) {
-    return size_t(kStages) * (strip_w + tw - 1) * kCb * esize +
+    return kBarBytes + size_t(kStages) * pitch_for(strip_w, tw, esize) +
            (th == kRegTh ? 0 : size_t(th) * strip_w * kCb * sizeof(float));
 }
 
 Plan make_plan(int qh, int qw, int c, int tw, int th, int esize) {
-    Plan g{qw, c, qh - th + 1, qw - tw + 1, 1, 1, 0, 0, 0, 0};
-    // The widest strip a block's threads cover whose stages fit kSmemTarget.
-    const long long fit = ((long long)kSmemTarget - (long long)smem_for(0, tw, th, esize)) /
-                          (long long)(smem_for(1, tw, th, esize) - smem_for(0, tw, th, esize));
-    const int widest = int(fit < 1 ? 1 : fit < kThreads / kQuads ? fit : kThreads / kQuads);
+    Plan g{qw, c, qh - th + 1, qw - tw + 1, 1, 1, 0, 0, 0, 0, 0};
+    // The widest strip a block's threads cover whose shared memory fits kSmemTarget.
+    int widest = kThreads / kQuads;
+    while (widest > 1 && smem_for(widest, tw, th, esize) > size_t(kSmemTarget)) --widest;
     g.strips = (g.out_w + widest - 1) / widest;
     g.strip_w = (g.out_w + g.strips - 1) / g.strips;
     g.threads = (g.strip_w * kQuads + 31) / 32 * 32;
+    g.pitch = pitch_for(g.strip_w, tw, esize);
     // Row bands, where channel groups and strips give too few blocks.
     const long long groups = (c + kCb - 1) / kCb;
     const long long want = (kFillBlocks + groups * g.strips - 1) / (groups * g.strips);
@@ -269,8 +311,31 @@ int blocks_per_sm(const Plan& g, int tw, int th) {
     return err == cudaSuccess ? n : -int(err);
 }
 
+// The plane [qh][qw][c] as a tensor map whose box is one row of a strip:
+// kCb channels by strip_w + tw - 1 pixels (past the plane: zeros).
+bool rows_map_for(CUtensorMap* map, const void* p, int qh, const Plan& g, int tw, int esize) {
+    static PFN_cuTensorMapEncodeTiled_v12000 encode = [] {
+        void* fn = nullptr;
+        cudaDriverEntryPointQueryResult found;
+        if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
+                cudaSuccess || found != cudaDriverEntryPointSuccess)
+            fn = nullptr;
+        return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+    }();
+    if (encode == nullptr) return false;
+    const cuuint64_t dims[3] = {cuuint64_t(g.c), cuuint64_t(g.qw), cuuint64_t(qh)};
+    const cuuint64_t strides[2] = {cuuint64_t(g.c) * esize, cuuint64_t(g.qw) * g.c * esize};
+    const cuuint32_t box[3] = {kCb, cuuint32_t(g.strip_w + tw - 1), 1};
+    const cuuint32_t unit[3] = {1, 1, 1};
+    const auto type = esize == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    return encode(map, type, 3, const_cast<void*>(p), dims, strides, box, unit,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+           CUDA_SUCCESS;
+}
+
 template <typename T>
-int launch(const void* p, void* out, Plan g, const Taps& taps, cudaStream_t stream) {
+int launch(const void* p, void* out, int qh, Plan g, const Taps& taps, cudaStream_t stream) {
     const auto kernel = kernel_for<T>(taps.th);
     const size_t smem = smem_for(g.strip_w, taps.tw, taps.th, sizeof(T));
     cudaError_t err = cudaFuncSetAttribute(
@@ -278,10 +343,13 @@ int launch(const void* p, void* out, Plan g, const Taps& taps, cudaStream_t stre
     if (err != cudaSuccess) return int(err);
     g.vec = reinterpret_cast<uintptr_t>(p) % 16 == 0 && (size_t(g.c) * sizeof(T)) % 16 == 0;
     g.vec_out = reinterpret_cast<uintptr_t>(out) % 16 == 0 && g.c % 4 == 0;
+    CUtensorMap map{};
+    if (g.vec && !rows_map_for(&map, p, qh, g, taps.tw, int(sizeof(T))))
+        return int(cudaErrorInvalidValue);
     const long long blocks = (long long)((g.c + kCb - 1) / kCb) * g.bands * g.strips;
     if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidValue);
     kernel<<<unsigned(blocks), g.threads, smem, stream>>>(static_cast<const T*>(p),
-                                                         static_cast<float*>(out), g, taps);
+                                                         static_cast<float*>(out), g, taps, map);
     return int(cudaGetLastError());
 }
 
@@ -319,8 +387,8 @@ int sg3_fir_taps(const void* p, const float* taps_w, const float* taps_h, void* 
     taps.tw = tw;
     taps.th = th;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return dtype == 0 ? launch<float>(p, out, make_plan(qh, qw, c, tw, th, 4), taps, s)
-                      : launch<__nv_bfloat16>(p, out, make_plan(qh, qw, c, tw, th, 2), taps, s);
+    return dtype == 0 ? launch<float>(p, out, qh, make_plan(qh, qw, c, tw, th, 4), taps, s)
+                      : launch<__nv_bfloat16>(p, out, qh, make_plan(qh, qw, c, tw, th, 2), taps, s);
 }
 
 }  // extern "C"

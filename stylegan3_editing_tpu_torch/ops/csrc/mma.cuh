@@ -79,14 +79,3 @@ __device__ __forceinline__ void cp_async_16(void* smem, const void* gmem) {
 __device__ __forceinline__ void cp_async_wait_all() {
     asm volatile("cp.async.wait_all;" ::: "memory");
 }
-
-// cp.async groups: commit this thread's copies issued since the last commit
-// as one group; wait until at most n of its groups are still in flight.
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int n>
-__device__ __forceinline__ void cp_async_wait_group() {
-    asm volatile("cp.async.wait_group %0;" ::"n"(n) : "memory");
-}

@@ -4,8 +4,8 @@
 output rows (with its Th − 1 halo of input rows) and one strip of at most
 32 output columns (with its Tw − 1 halo of input columns), a thread per
 (column, 4-channel slice); the host narrows strips until a block's ring of
-row stages (and, for Th other than 12, the threads' rings of t) fit a
-shared-memory target, and cuts bands where the channel groups and strips
+128-byte-aligned row stages (and, for Th other than 12, the threads' rings
+of t) fit a shared-memory target, and cuts bands where the channel groups and strips
 alone would not fill the card. A block streams its input rows once, top to
 bottom, through a ring of row stages; for each row a thread sums its
 column's W chain into t and feeds t to the H chains of the Th output rows
@@ -49,6 +49,7 @@ kRegTh = 12              # H taps whose running sums stay in registers
 kSmemTarget = 113_664    # bytes per block: two blocks share an SM
 kFillBlocks = 4 * 132    # blocks that fill an H100 four deep
 kMinBand = 4             # output rows of a band, at least (unless fewer)
+kBarBytes = 128          # the stages' mbarriers, ahead of the 128-byte-aligned stages
 DTYPES = {"float32": (torch.float32, jnp.float32, 4), "bfloat16": (torch.bfloat16, jnp.bfloat16, 2)}
 PROBE = (76, 76, 16896)
 
@@ -62,19 +63,24 @@ def split_at(k: int, n: int, length: int) -> int:
     return k * length // n
 
 
+def pitch_for(strip_w: int, tw: int, esize: int) -> int:
+    """Bytes of a stage: strip_w + tw − 1 pixels of kCb channels, to 128 bytes."""
+    return cdiv((strip_w + tw - 1) * kCb * esize, 128) * 128
+
+
 def smem_for(strip_w: int, tw: int, th: int, esize: int) -> int:
-    """Stages of strip_w + tw − 1 pixels, and the threads' rings of th
-    values of t where the H chains do not run in registers."""
+    """The stages' mbarriers, the stages, and the threads' rings of th values
+    of t where the H chains do not run in registers."""
     ring = 0 if th == kRegTh else th * strip_w * kCb * 4
-    return kStages * (strip_w + tw - 1) * kCb * esize + ring
+    return kBarBytes + kStages * pitch_for(strip_w, tw, esize) + ring
 
 
 def make_plan(qh: int, qw: int, c: int, tw: int, th: int, esize: int) -> dict:
     """fir_taps.cu's `make_plan`: strips, their widest width, and bands."""
     out_h, out_w = qh - th + 1, qw - tw + 1
-    base = smem_for(0, tw, th, esize)
-    fit = (kSmemTarget - base) // (smem_for(1, tw, th, esize) - base)
-    widest = max(1, min(fit, kThreads // kQuads))
+    widest = kThreads // kQuads
+    while widest > 1 and smem_for(widest, tw, th, esize) > kSmemTarget:
+        widest -= 1
     strips = cdiv(out_w, widest)
     groups = cdiv(c, kCb)
     bands = min(cdiv(kFillBlocks, groups * strips), cdiv(out_h, kMinBand))
