@@ -54,7 +54,7 @@
 namespace {
 
 constexpr int kThreads = 128;        // at most, a block: a thread per (column, slice) of a strip
-constexpr int kMinBlocks = 4;        // resident blocks per SM that the registers must allow
+constexpr int kMinBlocks = 6;        // resident blocks per SM that the registers must allow
 constexpr int kCb = 16;              // channels per block
 constexpr int kQuads = kCb / 4;      // 4-channel slices of a pixel: threads per column
 constexpr int kStages = 8;           // input rows in the ring
