@@ -11,31 +11,36 @@
 // Bound on the card: at 12 taps the two chains do ~50 useful FLOP per
 // output against 8 (fp32) or 6 (bf16) bytes of input and output, under the
 // card's ridge of ~20 FLOP/B, so the floor is bytes(in + out) / 3.35 TB/s.
-// What the design does about it: the plane is read once, with loads always
+// What the design does about it: the plane is read once, with rows always
 // in flight, and a block's threads work on their own with one barrier a row.
 // - A block owns a group of kCb = 16 channels (64 or 32 bytes of a pixel:
 //   whole 32-byte sectors), a band of output rows and a strip of at most
 //   kThreads / 4 output columns, and walks the band's input rows from top to
-//   bottom once: a thread owns one output column and one 4-channel slice.
+//   bottom once: a thread owns one output column and one 4-channel slice,
+//   and the block is sized to its strip (96 threads for the probe's strips
+//   of 22, 22 and 21 columns).
 // - Input rows arrive by TMA (cp.async.bulk.tensor): thread 0 copies one
 //   row of the strip, its kCb channels by strip_w + Tw - 1 pixels (zeros
 //   past the plane), into a ring of kStages 128-byte-aligned row stages in
 //   shared memory, each with an mbarrier that the copy completes; rows
-//   q + 1 .. q + kStages - 1 are in flight while row q is used. The
-//   threads issue no copies: when each issued its own 16-byte cp.async
-//   copies, issuing them stalled the threads for 35-40 % of their cycles.
-//   Where a pixel's channels are not whole aligned 16-byte slices
-//   (C * size % 16 != 0, or a plane off a 16-byte boundary), the block
-//   fills the same ring with element loads.
+//   q + 1 .. q + kStages - 1 are in flight while row q is used. No other
+//   thread issues copies: on the H100, 16-byte cp.async copies issued by
+//   every thread stalled the threads for 35-40 % of their cycles. Where a
+//   pixel's channels are not whole aligned 16-byte slices (C * size % 16 !=
+//   0, or a plane off a 16-byte boundary), the block fills the same ring
+//   with element loads.
 // - For each row a thread sums its column's W chain from the stage (Tw
 //   shared reads of 4 channels) into t, then feeds t to the H chains of the
 //   Th output rows that need it. With Th = kRegTh (the probe's 12) their
 //   running sums stay in registers, a ring of Th float4s rotated by the row
-//   index (a switch on q % Th makes every index static): output row i
+//   index (a branch on q % Th makes every index static): output row i
 //   takes th[k] * t[i + k] at row i + k, so its sum runs in tap order, and
 //   it is stored as soon as row i + Th - 1 has landed. For other Th the
 //   thread keeps its own ring of Th values of t in shared memory and sums
 //   output row i from it once row i + Th - 1 has landed.
+// - The time follows the warps an SM keeps busy: the launch bounds hold a
+//   thread to 85 registers, so 8 blocks share an SM at the probe's shape
+//   (fewer registers spill and run slower).
 // - The host sizes the plan from the shape (`make_plan`): strips of at
 //   most kThreads / 4 columns whose stages (and ring of t) fit kSmemTarget,
 //   each with a Tw - 1 halo of input columns; and, where the channel groups
@@ -54,7 +59,7 @@
 namespace {
 
 constexpr int kThreads = 128;        // at most, a block: a thread per (column, slice) of a strip
-constexpr int kMinBlocks = 6;        // resident blocks per SM that the registers must allow
+constexpr int kMinBlocks = 6;        // blocks per SM the registers must allow: <= 85 each
 constexpr int kCb = 16;              // channels per block
 constexpr int kQuads = kCb / 4;      // 4-channel slices of a pixel: threads per column
 constexpr int kStages = 8;           // input rows in the ring
@@ -327,7 +332,8 @@ bool rows_map_for(CUtensorMap* map, const void* p, int qh, const Plan& g, int tw
     const cuuint64_t strides[2] = {cuuint64_t(g.c) * esize, cuuint64_t(g.qw) * g.c * esize};
     const cuuint32_t box[3] = {kCb, cuuint32_t(g.strip_w + tw - 1), 1};
     const cuuint32_t unit[3] = {1, 1, 1};
-    const auto type = esize == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    const auto type =
+        esize == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
     return encode(map, type, 3, const_cast<void*>(p), dims, strides, box, unit,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
