@@ -13,14 +13,15 @@
 // card's ridge of ~20 FLOP/B, so the floor is bytes(in + out) / 3.35 TB/s.
 // What the design does about it: the plane is read once, with rows always
 // in flight, and a block's threads work on their own with one barrier a row.
-// - A block owns a group of kCb = 16 channels (64 or 32 bytes of a pixel:
-//   whole 32-byte sectors), a band of output rows and a strip of at most
-//   kThreads / 4 output columns, and walks the band's input rows from top to
-//   bottom once: a thread owns one output column and one 4-channel slice,
-//   and the block is sized to its strip (96 threads for the probe's strips
-//   of 22, 22 and 21 columns).
+// - A block owns 64 bytes of each pixel (a group of 16 fp32 or 32 bf16
+//   channels: whole 32-byte sectors), a band of output rows and a strip of
+//   at most kThreads / 4 output columns, and walks the band's input rows
+//   from top to bottom once: a thread owns one output column and one
+//   16-byte slice of its pixels (4 fp32 or 8 bf16 channels, one shared
+//   read a tap), and the block is sized to its strip (96 threads for the
+//   probe's strips of 22, 22 and 21 columns).
 // - Input rows arrive by TMA (cp.async.bulk.tensor): thread 0 copies one
-//   row of the strip, its kCb channels by strip_w + Tw - 1 pixels (zeros
+//   row of the strip, its channels by strip_w + Tw - 1 pixels (zeros
 //   past the plane), into a ring of kStages 128-byte-aligned row stages in
 //   shared memory, each with an mbarrier that the copy completes; rows
 //   q + 1 .. q + kStages - 1 are in flight while row q is used. No other
@@ -30,17 +31,18 @@
 //   0, or a plane off a 16-byte boundary), the block fills the same ring
 //   with element loads.
 // - For each row a thread sums its column's W chain from the stage (Tw
-//   shared reads of 4 channels) into t, then feeds t to the H chains of the
+//   shared reads of its slice) into t, then feeds t to the H chains of the
 //   Th output rows that need it. With Th = kRegTh (the probe's 12) their
-//   running sums stay in registers, a ring of Th float4s rotated by the row
+//   running sums stay in registers, a ring of Th slices rotated by the row
 //   index (a branch on q % Th makes every index static): output row i
 //   takes th[k] * t[i + k] at row i + k, so its sum runs in tap order, and
 //   it is stored as soon as row i + Th - 1 has landed. For other Th the
 //   thread keeps its own ring of Th values of t in shared memory and sums
 //   output row i from it once row i + Th - 1 has landed.
-// - The time follows the warps an SM keeps busy: the launch bounds hold a
-//   thread to 85 registers, so 8 blocks share an SM at the probe's shape
-//   (fewer registers spill and run slower).
+// - The time follows the block-rows an SM holds at once: the launch bounds
+//   hold an fp32 thread to 85 registers (48 running sums), so 8 blocks share
+//   an SM at the probe's shape, and a bf16 thread to 128 (96 sums, 5
+//   blocks, each with twice the channels). Fewer registers spill and lose.
 // - The host sizes the plan from the shape (`make_plan`): strips of at
 //   most kThreads / 4 columns whose stages (and ring of t) fit kSmemTarget,
 //   each with a Tw - 1 halo of input columns; and, where the channel groups
@@ -59,9 +61,8 @@
 namespace {
 
 constexpr int kThreads = 128;        // at most, a block: a thread per (column, slice) of a strip
-constexpr int kMinBlocks = 6;        // blocks per SM the registers must allow: <= 85 each
-constexpr int kCb = 16;              // channels per block
-constexpr int kQuads = kCb / 4;      // 4-channel slices of a pixel: threads per column
+constexpr int kPixelBytes = 64;      // of a pixel, a block's channels: 16 fp32 or 32 bf16
+constexpr int kQuads = 4;            // 16-byte slices of those: threads per column
 constexpr int kStages = 8;           // input rows in the ring
 constexpr int kRegTh = 12;           // H taps whose running sums stay in registers
 constexpr int kMaxTaps = 64;
@@ -80,29 +81,56 @@ struct Plan {
     int vec_out;        // float4 stores of whole 4-channel slices
 };
 
+// A thread's 16-byte slice of a pixel, widened to fp32: 4 fp32 or 8 bf16 channels.
+template <typename T>
+struct Slice {
+    static constexpr int kN = 16 / (4 * int(sizeof(T)));  // float4s: 1 or 2
+    float4 q[kN];
+};
+
+// Resident blocks per SM that the registers must allow: fp32 holds 48 running
+// sums a thread (<= 85 registers), bf16 96 (<= 128).
+template <typename T>
+constexpr int kMinBlocks = sizeof(T) == 4 ? 6 : 4;
+
 struct Taps {
     float w[kMaxTaps], h[kMaxTaps];
     int tw, th;
 };
-
-template <typename T>
-__device__ __forceinline__ float4 load4(const T* s);
-template <>
-__device__ __forceinline__ float4 load4<float>(const float* s) {
-    return *reinterpret_cast<const float4*>(s);
-}
-template <>  // four bf16 channels in their order: low half first
-__device__ __forceinline__ float4 load4<__nv_bfloat16>(const __nv_bfloat16* s) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(s);
-    return make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u),
-                       __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
-}
 
 __device__ __forceinline__ void fma4(float4& a, float f, const float4& x) {
     a.x = fmaf(f, x.x, a.x);
     a.y = fmaf(f, x.y, a.y);
     a.z = fmaf(f, x.z, a.z);
     a.w = fmaf(f, x.w, a.w);
+}
+
+template <typename T>
+__device__ __forceinline__ Slice<T> zero_slice() {
+    Slice<T> v;
+#pragma unroll
+    for (int h = 0; h < Slice<T>::kN; ++h) v.q[h] = make_float4(0.f, 0.f, 0.f, 0.f);
+    return v;
+}
+
+template <typename T>
+__device__ __forceinline__ void fma_slice(Slice<T>& a, float f, const Slice<T>& x) {
+#pragma unroll
+    for (int h = 0; h < Slice<T>::kN; ++h) fma4(a.q[h], f, x.q[h]);
+}
+
+// One 16-byte read of a pixel's slice, widened to fp32 in channel order (a
+// bf16 channel is the high half of its fp32 value).
+__device__ __forceinline__ Slice<float> load_slice(const float* s) {
+    return Slice<float>{{*reinterpret_cast<const float4*>(s)}};
+}
+__device__ __forceinline__ Slice<__nv_bfloat16> load_slice(const __nv_bfloat16* s) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(s);
+    return Slice<__nv_bfloat16>{
+        {make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u),
+                     __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u)),
+         make_float4(__uint_as_float(raw.z << 16), __uint_as_float(raw.z & 0xffff0000u),
+                     __uint_as_float(raw.w << 16), __uint_as_float(raw.w & 0xffff0000u))}};
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -142,33 +170,37 @@ __host__ __device__ __forceinline__ int split_at(int k, int n, int len) {
 // Row q = u (mod kTh) of the H chains in registers: acc[s] holds output row
 // i = s (mod kTh), which takes tap q - i. Output row q - kTh + 1 is then
 // whole: it is returned and its slot cleared for row q + 1.
-template <int kTh, int u>
-__device__ __forceinline__ float4 h_row(float4 (&acc)[kTh], const float (&th)[kTh], float4 t) {
+template <int kTh, int u, typename T>
+__device__ __forceinline__ Slice<T> h_row(Slice<T> (&acc)[kTh], const float (&th)[kTh],
+                                          const Slice<T>& t) {
 #pragma unroll
-    for (int k = 0; k < kTh; ++k) fma4(acc[(u - k + kTh) % kTh], th[k], t);
-    const float4 done = acc[(u + 1) % kTh];
-    acc[(u + 1) % kTh] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int k = 0; k < kTh; ++k) fma_slice(acc[(u - k + kTh) % kTh], th[k], t);
+    const Slice<T> done = acc[(u + 1) % kTh];
+    acc[(u + 1) % kTh] = zero_slice<T>();
     return done;
 }
 
-template <int kTh, int u = kTh - 1>
-__device__ __forceinline__ float4 h_row_at(int q_mod, float4 (&acc)[kTh], const float (&th)[kTh],
-                                           float4 t) {
+template <int kTh, typename T, int u = kTh - 1>
+__device__ __forceinline__ Slice<T> h_row_at(int q_mod, Slice<T> (&acc)[kTh],
+                                             const float (&th)[kTh], const Slice<T>& t) {
     if constexpr (u == 0) {
         return h_row<kTh, 0>(acc, th, t);
     } else {
-        return q_mod == u ? h_row<kTh, u>(acc, th, t) : h_row_at<kTh, u - 1>(q_mod, acc, th, t);
+        return q_mod == u ? h_row<kTh, u>(acc, th, t)
+                          : h_row_at<kTh, T, u - 1>(q_mod, acc, th, t);
     }
 }
 
 // kTh = kRegTh: the H chains' running sums in registers; kTh = 0: any Th,
 // each thread's ring of t in shared memory.
 template <typename T, int kTh>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<T>)
 fir_taps_kernel(const T* __restrict__ p, float* __restrict__ out,
                 const __grid_constant__ Plan g, const __grid_constant__ Taps taps,
                 const __grid_constant__ CUtensorMap rows_map) {
     extern __shared__ __align__(128) unsigned char smem[];
+    constexpr int kCb = kPixelBytes / int(sizeof(T));  // channels per block
+    constexpr int kSl = 16 / int(sizeof(T));           // channels per thread
     const int tid = threadIdx.x;
     const int strip = blockIdx.x % g.strips;
     const int band = (blockIdx.x / g.strips) % g.bands;
@@ -181,14 +213,13 @@ fir_taps_kernel(const T* __restrict__ p, float* __restrict__ out,
     const int rows = out_rows + th - 1;       // input rows the band reads
     const int cols_in = cols + taps.tw - 1;   // input columns the strip reads
     const int nch = min(kCb, g.c - c0);
-    const int nquads = (nch + 3) / 4;
-    const int quad = tid % nquads, j = tid / nquads;  // this thread's slice and column
-    const bool active = j < cols;
+    const int slice = tid % kQuads, j = tid / kQuads;  // this thread's slice and column
+    const bool active = j < cols && kSl * slice < nch;
     const int pitch = g.pitch / int(sizeof(T));  // elements of a stage
     uint64_t* bars = reinterpret_cast<uint64_t*>(smem);  // one mbarrier a stage
     T* stage = reinterpret_cast<T*>(smem + kBarBytes);
-    // kTh = 0: each thread's ring of t, [th][g.strip_w * kQuads] float4s.
-    float4* tring = reinterpret_cast<float4*>(smem + kBarBytes + kStages * g.pitch);
+    // kTh = 0: each thread's ring of t, [th][g.strip_w * kQuads] slices.
+    Slice<T>* tring = reinterpret_cast<Slice<T>*>(smem + kBarBytes + kStages * g.pitch);
     const int ring_w = g.strip_w * kQuads;
     const int box_bytes = (g.strip_w + taps.tw - 1) * kCb * int(sizeof(T));
     if (g.vec && tid == 0) {
@@ -214,15 +245,15 @@ fir_taps_kernel(const T* __restrict__ p, float* __restrict__ out,
     };
 
     constexpr int kRing = kTh > 0 ? kTh : 1;
-    float4 acc[kRing];
+    Slice<T> acc[kRing];
     float hk[kRing];
 #pragma unroll
     for (int k = 0; k < kRing; ++k) {
-        acc[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+        acc[k] = zero_slice<T>();
         hk[k] = taps.h[k];
     }
-    float* dst = out + (size_t(i0) * g.out_w + j0 + j) * g.c + c0 + 4 * quad;  // output row i0
-    const bool whole = g.vec_out && 4 * quad + 4 <= nch;
+    float* dst = out + (size_t(i0) * g.out_w + j0 + j) * g.c + c0 + kSl * slice;  // row i0
+    const bool whole = g.vec_out && kSl * slice + kSl <= nch;
 
     for (int r = 0; r < kStages - 1; ++r) fetch(r);
     for (int q = 0; q < rows; ++q) {
@@ -232,35 +263,38 @@ fir_taps_kernel(const T* __restrict__ p, float* __restrict__ out,
         if (g.vec) mbar_wait(&bars[q % kStages], (q / kStages) & 1);  // row q has landed
 
         // W chain of row q at column j.
-        const T* src = stage + (q % kStages) * pitch + j * kCb + 4 * quad;
-        float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+        const T* src = stage + (q % kStages) * pitch + j * kCb + kSl * slice;
+        Slice<T> t = zero_slice<T>();
 #pragma unroll 4
-        for (int k = 0; k < taps.tw; ++k) fma4(t, taps.w[k], load4(src + k * kCb));
+        for (int k = 0; k < taps.tw; ++k) fma_slice(t, taps.w[k], load_slice(src + k * kCb));
 
         // H chains: output row i = q - th + 1 is whole after row q.
         const int i = q - th + 1;
-        float4 o;
+        Slice<T> o;
         if constexpr (kTh > 0) {
             o = h_row_at<kTh>(q % kTh, acc, hk, t);
         } else {
             tring[(q % th) * ring_w + tid] = t;
             if (i < 0) continue;
-            o = make_float4(0.f, 0.f, 0.f, 0.f);
+            o = zero_slice<T>();
             int slot = i % th;
             for (int k = 0; k < th; ++k) {
-                fma4(o, taps.h[k], tring[slot * ring_w + tid]);
+                fma_slice(o, taps.h[k], tring[slot * ring_w + tid]);
                 slot = slot + 1 == th ? 0 : slot + 1;
             }
         }
         if (i < 0) continue;
         float* d = dst + size_t(i) * g.out_w * g.c;
-        if (whole) {
-            *reinterpret_cast<float4*>(d) = o;
-        } else {
-            const float v[4] = {o.x, o.y, o.z, o.w};
 #pragma unroll
-            for (int e = 0; e < 4; ++e)
-                if (4 * quad + e < nch) d[e] = v[e];
+        for (int h = 0; h < Slice<T>::kN; ++h) {
+            if (whole) {
+                *reinterpret_cast<float4*>(d + 4 * h) = o.q[h];
+            } else {
+                const float v[4] = {o.q[h].x, o.q[h].y, o.q[h].z, o.q[h].w};
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    if (kSl * slice + 4 * h + e < nch) d[4 * h + e] = v[e];
+            }
         }
     }
 }
@@ -270,16 +304,16 @@ bool valid(int qh, int qw, int c, int tw, int th, int dtype) {
            c >= 1 && (dtype == 0 || dtype == 1);
 }
 
-// Bytes of a stage: strip_w + tw - 1 pixels of kCb channels, to 128 bytes.
-int pitch_for(int strip_w, int tw, int esize) {
-    return ((strip_w + tw - 1) * kCb * esize + 127) / 128 * 128;
+// Bytes of a stage: strip_w + tw - 1 pixels of kPixelBytes, to 128 bytes.
+int pitch_for(int strip_w, int tw) {
+    return ((strip_w + tw - 1) * kPixelBytes + 127) / 128 * 128;
 }
 
 // The stages' mbarriers, the stages, and the threads' rings of th values of
 // t where the H chains do not run in registers.
 size_t smem_for(int strip_w, int tw, int th, int esize) {
-    return kBarBytes + size_t(kStages) * pitch_for(strip_w, tw, esize) +
-           (th == kRegTh ? 0 : size_t(th) * strip_w * kCb * sizeof(float));
+    return kBarBytes + size_t(kStages) * pitch_for(strip_w, tw) +
+           (th == kRegTh ? 0 : size_t(th) * strip_w * (kPixelBytes / esize) * sizeof(float));
 }
 
 Plan make_plan(int qh, int qw, int c, int tw, int th, int esize) {
@@ -290,9 +324,10 @@ Plan make_plan(int qh, int qw, int c, int tw, int th, int esize) {
     g.strips = (g.out_w + widest - 1) / widest;
     g.strip_w = (g.out_w + g.strips - 1) / g.strips;
     g.threads = (g.strip_w * kQuads + 31) / 32 * 32;
-    g.pitch = pitch_for(g.strip_w, tw, esize);
+    g.pitch = pitch_for(g.strip_w, tw);
     // Row bands, where channel groups and strips give too few blocks.
-    const long long groups = (c + kCb - 1) / kCb;
+    const long long cb = kPixelBytes / esize;  // channels per block
+    const long long groups = (c + cb - 1) / cb;
     const long long want = (kFillBlocks + groups * g.strips - 1) / (groups * g.strips);
     const long long most = (g.out_h + kMinBand - 1) / kMinBand;
     g.bands = int(want < most ? want : most);
@@ -317,7 +352,7 @@ int blocks_per_sm(const Plan& g, int tw, int th) {
 }
 
 // The plane [qh][qw][c] as a tensor map whose box is one row of a strip:
-// kCb channels by strip_w + tw - 1 pixels (past the plane: zeros).
+// kPixelBytes of channels by strip_w + tw - 1 pixels (past the plane: zeros).
 bool rows_map_for(CUtensorMap* map, const void* p, int qh, const Plan& g, int tw, int esize) {
     static PFN_cuTensorMapEncodeTiled_v12000 encode = [] {
         void* fn = nullptr;
@@ -330,7 +365,7 @@ bool rows_map_for(CUtensorMap* map, const void* p, int qh, const Plan& g, int tw
     if (encode == nullptr) return false;
     const cuuint64_t dims[3] = {cuuint64_t(g.c), cuuint64_t(g.qw), cuuint64_t(qh)};
     const cuuint64_t strides[2] = {cuuint64_t(g.c) * esize, cuuint64_t(g.qw) * g.c * esize};
-    const cuuint32_t box[3] = {kCb, cuuint32_t(g.strip_w + tw - 1), 1};
+    const cuuint32_t box[3] = {cuuint32_t(kPixelBytes / esize), cuuint32_t(g.strip_w + tw - 1), 1};
     const cuuint32_t unit[3] = {1, 1, 1};
     const auto type =
         esize == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
@@ -352,7 +387,8 @@ int launch(const void* p, void* out, int qh, Plan g, const Taps& taps, cudaStrea
     CUtensorMap map{};
     if (g.vec && !rows_map_for(&map, p, qh, g, taps.tw, int(sizeof(T))))
         return int(cudaErrorInvalidValue);
-    const long long blocks = (long long)((g.c + kCb - 1) / kCb) * g.bands * g.strips;
+    constexpr int cb = kPixelBytes / int(sizeof(T));  // channels per block
+    const long long blocks = (long long)((g.c + cb - 1) / cb) * g.bands * g.strips;
     if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidValue);
     kernel<<<unsigned(blocks), g.threads, smem, stream>>>(static_cast<const T*>(p),
                                                          static_cast<float*>(out), g, taps, map);

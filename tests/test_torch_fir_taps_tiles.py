@@ -1,12 +1,13 @@
 """The tap-chain kernel's plan and row schedule, emulated on the CPU.
 
-`ops/csrc/fir_taps.cu` gives a block one group of 16 channels, one band of
+`ops/csrc/fir_taps.cu` gives a block 64 bytes of each pixel (16 fp32 or 32
+bf16 channels), one band of
 output rows (with its Th − 1 halo of input rows) and one strip of at most
 32 output columns (with its Tw − 1 halo of input columns), a thread per
-(column, 4-channel slice); the host narrows strips until a block's ring of
-128-byte-aligned row stages (and, for Th other than 12, the threads' rings
-of t) fit a shared-memory target, and cuts bands where the channel groups and strips
-alone would not fill the card. A block streams its input rows once, top to
+(column, 16-byte slice of its pixels); the host narrows strips until a
+block's ring of 128-byte-aligned row stages (and, for Th other than 12, the
+threads' rings of t) fit a shared-memory target, and cuts bands where the
+channel groups and strips alone would not fill the card. A block streams its input rows once, top to
 bottom, through a ring of row stages; for each row a thread sums its
 column's W chain into t and feeds t to the H chains of the Th output rows
 that need it: with 12 taps as running sums in a ring of registers rotated by
@@ -42,8 +43,8 @@ ROOT = Path(__file__).resolve().parents[1]
 FIR_TOL = 1e-5           # of max |ref|: the sum order of the chains
 # fir_taps.cu's plan constants.
 kThreads = 128           # at most, a block: a thread per (column, slice) of a strip
-kCb = 16                 # channels per block
-kQuads = kCb // 4        # 4-channel slices of a pixel: threads per column
+kPixelBytes = 64         # of a pixel, a block's channels: 16 fp32 or 32 bf16
+kQuads = 4               # 16-byte slices of those: threads per column
 kStages = 8              # input rows in the ring
 kRegTh = 12              # H taps whose running sums stay in registers
 kSmemTarget = 113_664    # bytes per block: two blocks share an SM
@@ -63,16 +64,16 @@ def split_at(k: int, n: int, length: int) -> int:
     return k * length // n
 
 
-def pitch_for(strip_w: int, tw: int, esize: int) -> int:
-    """Bytes of a stage: strip_w + tw − 1 pixels of kCb channels, to 128 bytes."""
-    return cdiv((strip_w + tw - 1) * kCb * esize, 128) * 128
+def pitch_for(strip_w: int, tw: int) -> int:
+    """Bytes of a stage: strip_w + tw − 1 pixels of kPixelBytes, to 128 bytes."""
+    return cdiv((strip_w + tw - 1) * kPixelBytes, 128) * 128
 
 
 def smem_for(strip_w: int, tw: int, th: int, esize: int) -> int:
     """The stages' mbarriers, the stages, and the threads' rings of th values
     of t where the H chains do not run in registers."""
-    ring = 0 if th == kRegTh else th * strip_w * kCb * 4
-    return kBarBytes + kStages * pitch_for(strip_w, tw, esize) + ring
+    ring = 0 if th == kRegTh else th * strip_w * (kPixelBytes // esize) * 4
+    return kBarBytes + kStages * pitch_for(strip_w, tw) + ring
 
 
 def make_plan(qh: int, qw: int, c: int, tw: int, th: int, esize: int) -> dict:
@@ -82,10 +83,11 @@ def make_plan(qh: int, qw: int, c: int, tw: int, th: int, esize: int) -> dict:
     while widest > 1 and smem_for(widest, tw, th, esize) > kSmemTarget:
         widest -= 1
     strips = cdiv(out_w, widest)
-    groups = cdiv(c, kCb)
+    cb = kPixelBytes // esize  # channels per block
+    groups = cdiv(c, cb)
     bands = min(cdiv(kFillBlocks, groups * strips), cdiv(out_h, kMinBand))
     return dict(out_h=out_h, out_w=out_w, strips=strips, strip_w=cdiv(out_w, strips),
-                bands=bands, groups=groups)
+                bands=bands, groups=groups, cb=cb)
 
 
 def blocks(g: dict, c: int):
@@ -93,9 +95,9 @@ def blocks(g: dict, c: int):
     the grid's order: strips fastest, then bands, then channel groups."""
     for x in range(g["groups"] * g["bands"] * g["strips"]):
         strip, band = x % g["strips"], x // g["strips"] % g["bands"]
-        c0 = x // (g["strips"] * g["bands"]) * kCb
+        c0 = x // (g["strips"] * g["bands"]) * g["cb"]
         j0, i0 = split_at(strip, g["strips"], g["out_w"]), split_at(band, g["bands"], g["out_h"])
-        yield (c0, min(kCb, c - c0), i0, split_at(band + 1, g["bands"], g["out_h"]) - i0,
+        yield (c0, min(g["cb"], c - c0), i0, split_at(band + 1, g["bands"], g["out_h"]) - i0,
                j0, split_at(strip + 1, g["strips"], g["out_w"]) - j0)
 
 
@@ -151,7 +153,7 @@ CASES = [
     (37, 29, 45, 4, 1, "ragged channel group, one H tap"),
     (12, 12, 6, 1, 1, "one tap each"),
     (76, 76, 20, 12, 12, "the probe's plane at a small C"),
-    (66, 90, 8, 64, 64, "64 taps: strips of a ragged last width"),
+    (66, 92, 8, 64, 64, "64 taps: strips of a ragged last width"),
     (66, 40, 17, 40, 3, "Tw = Qw: one output column"),
     (9, 30, 16, 5, 9, "Th = Qh: one output row"),
     (50, 23, 33, 4, 12, "ragged bands"),
@@ -191,10 +193,10 @@ def _assert_close(got, ref):
 
 def _covered(qh, qw, c, tw, th, esize) -> np.ndarray:
     g = make_plan(qh, qw, c, tw, th, esize)
-    hits = np.zeros((g["out_h"], g["out_w"], cdiv(c, kCb)), np.int32)
+    hits = np.zeros((g["out_h"], g["out_w"], g["groups"]), np.int32)
     for c0, nch, i0, rows, j0, cols in blocks(g, c):
-        assert rows >= 1 and cols >= 1 and 1 <= nch <= kCb
-        hits[i0:i0 + rows, j0:j0 + cols, c0 // kCb] += 1
+        assert rows >= 1 and cols >= 1 and 1 <= nch <= g["cb"]
+        hits[i0:i0 + rows, j0:j0 + cols, c0 // g["cb"]] += 1
     return hits
 
 
@@ -204,17 +206,20 @@ def test_bands_and_strips_cover_every_output_once(shape, dtype):
     """At the probe's planes every output of every channel group is one
     block's, exactly once. At [76, 76, 16896] a block holds a whole band of
     76 input rows (the plane crosses device memory once) and one of three
-    strips of 22, 22 and 21 columns (a thread per column and slice); at
-    [76, 76, 128] bands of 3 or 4 rows give 408 blocks, where the 8 channel
-    groups alone would leave most of the 132 SMs idle."""
+    strips of 22, 22 and 21 columns (a thread per column and 16-byte slice;
+    64 bytes of a pixel a block: 1,056 groups of 16 fp32 channels, 528 of 32
+    bf16); at [76, 76, 128] bands of 3 or 4 rows give 408 (fp32) or 204
+    (bf16) blocks, where the channel groups alone would leave most of the 132
+    SMs idle."""
     esize = DTYPES[dtype][2]
     assert (_covered(*shape, 12, 12, esize) == 1).all()
     g = make_plan(*shape, 12, 12, esize)
     assert smem_for(g["strip_w"], 12, 12, esize) <= kSmemTarget
-    if shape == PROBE:
-        assert (g["bands"], g["strips"], g["groups"]) == (1, 3, 1056)
-    else:
-        assert (g["bands"], g["strips"], g["groups"]) == (17, 3, 8)
+    groups = 1056 if shape == PROBE else 8
+    if esize == 2:
+        groups //= 2
+    bands = 1 if shape == PROBE else 17
+    assert (g["bands"], g["strips"], g["groups"]) == (bands, 3, groups)
 
 
 def test_plan_fits_and_covers_every_shape_the_kernel_takes():
@@ -253,7 +258,7 @@ def test_ragged_cases_have_ragged_bands_and_strips():
     """The cases above reach what they are named for: strips at 64 taps, an
     uneven band split, and bands at the probe's plane at a small C."""
     for esize in (4, 2):
-        g = make_plan(66, 90, 8, 64, 64, esize)
+        g = make_plan(66, 92, 8, 64, 64, esize)
         assert g["strips"] > 1 and g["out_w"] % g["strips"] != 0
     g = make_plan(50, 23, 33, 4, 12, 2)
     assert g["bands"] > 1 and g["out_h"] % g["bands"] != 0
