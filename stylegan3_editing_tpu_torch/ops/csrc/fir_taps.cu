@@ -62,7 +62,7 @@ namespace {
 
 constexpr int kThreads = 128;        // at most, a block: a thread per (column, slice) of a strip
 constexpr int kPixelBytes = 64;      // of a pixel, a block's channels: 16 fp32 or 32 bf16
-constexpr int kQuads = 4;            // 16-byte slices of those: threads per column
+constexpr int kSlices = 4;           // 16-byte slices of those: threads per column
 constexpr int kStages = 8;           // input rows in the ring
 constexpr int kRegTh = 12;           // H taps whose running sums stay in registers
 constexpr int kMaxTaps = 64;
@@ -75,7 +75,7 @@ struct Plan {
     int qw, c, out_h, out_w;
     int strips, bands;  // column strips and row bands of the output, split evenly
     int strip_w;        // widest strip
-    int threads;        // the block: strip_w * kQuads threads, whole warps
+    int threads;        // the block: strip_w * kSlices threads, whole warps
     int pitch;          // bytes of a stage: strip_w + tw - 1 pixels, to 128 bytes
     int vec;            // whole aligned 16-byte channel slices: rows by TMA
     int vec_out;        // float4 stores of whole 4-channel slices
@@ -213,14 +213,14 @@ fir_taps_kernel(const T* __restrict__ p, float* __restrict__ out,
     const int rows = out_rows + th - 1;       // input rows the band reads
     const int cols_in = cols + taps.tw - 1;   // input columns the strip reads
     const int nch = min(kCb, g.c - c0);
-    const int slice = tid % kQuads, j = tid / kQuads;  // this thread's slice and column
+    const int slice = tid % kSlices, j = tid / kSlices;  // this thread's slice and column
     const bool active = j < cols && kSl * slice < nch;
     const int pitch = g.pitch / int(sizeof(T));  // elements of a stage
     uint64_t* bars = reinterpret_cast<uint64_t*>(smem);  // one mbarrier a stage
     T* stage = reinterpret_cast<T*>(smem + kBarBytes);
-    // kTh = 0: each thread's ring of t, [th][g.strip_w * kQuads] slices.
+    // kTh = 0: each thread's ring of t, [th][g.strip_w * kSlices] slices.
     Slice<T>* tring = reinterpret_cast<Slice<T>*>(smem + kBarBytes + kStages * g.pitch);
-    const int ring_w = g.strip_w * kQuads;
+    const int ring_w = g.strip_w * kSlices;
     const int box_bytes = (g.strip_w + taps.tw - 1) * kCb * int(sizeof(T));
     if (g.vec && tid == 0) {
         for (int s = 0; s < kStages; ++s) mbar_init(&bars[s]);
@@ -319,11 +319,11 @@ size_t smem_for(int strip_w, int tw, int th, int esize) {
 Plan make_plan(int qh, int qw, int c, int tw, int th, int esize) {
     Plan g{qw, c, qh - th + 1, qw - tw + 1, 1, 1, 0, 0, 0, 0, 0};
     // The widest strip a block's threads cover whose shared memory fits kSmemTarget.
-    int widest = kThreads / kQuads;
+    int widest = kThreads / kSlices;
     while (widest > 1 && smem_for(widest, tw, th, esize) > size_t(kSmemTarget)) --widest;
     g.strips = (g.out_w + widest - 1) / widest;
     g.strip_w = (g.out_w + g.strips - 1) / g.strips;
-    g.threads = (g.strip_w * kQuads + 31) / 32 * 32;
+    g.threads = (g.strip_w * kSlices + 31) / 32 * 32;
     g.pitch = pitch_for(g.strip_w, tw);
     // Row bands, where channel groups and strips give too few blocks.
     const long long cb = kPixelBytes / esize;  // channels per block

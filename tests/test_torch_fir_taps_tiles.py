@@ -44,7 +44,7 @@ FIR_TOL = 1e-5           # of max |ref|: the sum order of the chains
 # fir_taps.cu's plan constants.
 kThreads = 128           # at most, a block: a thread per (column, slice) of a strip
 kPixelBytes = 64         # of a pixel, a block's channels: 16 fp32 or 32 bf16
-kQuads = 4               # 16-byte slices of those: threads per column
+kSlices = 4              # 16-byte slices of those: threads per column
 kStages = 8              # input rows in the ring
 kRegTh = 12              # H taps whose running sums stay in registers
 kSmemTarget = 113_664    # bytes per block: two blocks share an SM
@@ -79,7 +79,7 @@ def smem_for(strip_w: int, tw: int, th: int, esize: int) -> int:
 def make_plan(qh: int, qw: int, c: int, tw: int, th: int, esize: int) -> dict:
     """fir_taps.cu's `make_plan`: strips, their widest width, and bands."""
     out_h, out_w = qh - th + 1, qw - tw + 1
-    widest = kThreads // kQuads
+    widest = kThreads // kSlices
     while widest > 1 and smem_for(widest, tw, th, esize) > kSmemTarget:
         widest -= 1
     strips = cdiv(out_w, widest)
@@ -114,7 +114,7 @@ def emulate(p: torch.Tensor, taps_w: np.ndarray, taps_h: np.ndarray) -> torch.Te
     o = torch.full((g["out_h"], g["out_w"], c), float("nan"))
     for c0, nch, i0, out_rows, j0, cols in blocks(g, c):
         rows, cols_in = out_rows + th - 1, cols + tw - 1
-        assert i0 + rows <= qh and j0 + cols_in <= qw and cols <= kThreads // kQuads
+        assert i0 + rows <= qh and j0 + cols_in <= qw and cols <= kThreads // kSlices
         stage = [None] * kStages
         ring = torch.zeros((th, cols, nch))  # running sums (th = 12) or t (other th)
 
