@@ -5,5 +5,7 @@ so `models.sg3.load_jax_variables` fills them from a flax variable tree.
 """
 
 from .alexnet import AlexNetFeatures, convert_alexnet_state
+from .irse import IRSEBackbone, IRSEBody, convert_irse_state, get_blocks
 
-__all__ = ["AlexNetFeatures", "convert_alexnet_state"]
+__all__ = ["AlexNetFeatures", "convert_alexnet_state", "IRSEBackbone", "IRSEBody",
+           "convert_irse_state", "get_blocks"]

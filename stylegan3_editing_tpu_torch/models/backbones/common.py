@@ -1,7 +1,9 @@
 """Shared building blocks and torch-weight mapping helpers for backbones.
 
 Counterpart of the JAX package's `models/backbones/common.py`. Weights are
-stored in the flax layout (HWIO kernels), so a flax tree copies in as it is.
+stored in the flax layout (HWIO kernels, ``[in, out]`` dense kernels) under
+the flax names, so a flax tree copies in as it is; batch-norm statistics are
+buffers named after the flax ``batch_stats`` collection (``mean``, ``var``).
 The conv runs through PyTorch's convolution in full fp32 (`device.conv2d`;
 the JAX package leaves these convs to XLA) on the NCHW view of an NHWC
 tensor, which is channels-last in memory, so no copy is made either way.
@@ -10,7 +12,7 @@ tensor, which is channels-last in memory, so no copy is made either way.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -20,7 +22,8 @@ from ...device import conv2d
 
 
 class Conv2d(nn.Module):
-    """2-D convolution of NHWC tensors with an HWIO ``kernel`` and a ``bias``.
+    """2-D convolution of NHWC tensors with an HWIO ``kernel`` and, unless
+    ``use_bias=False`` (flax ``nn.Conv(use_bias=False)``), a ``bias``.
 
     Initialised from ``generator``: the kernel normal with std
     ``1/sqrt(fan_in)`` (flax's lecun normal, untruncated), the bias zero.
@@ -28,14 +31,14 @@ class Conv2d(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, use_bias: bool = True):
         super().__init__()
         self.stride, self.padding = stride, padding
         fan_in = in_channels * kernel_size ** 2
         self.kernel = nn.Parameter(torch.randn(
             (kernel_size, kernel_size, in_channels, out_channels), generator=generator)
             / math.sqrt(fan_in))
-        self.bias = nn.Parameter(torch.zeros(out_channels))
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = conv2d(x.permute(0, 3, 1, 2), self.kernel.permute(3, 2, 0, 1), self.bias,
@@ -43,9 +46,78 @@ class Conv2d(nn.Module):
         return y.permute(0, 2, 3, 1)
 
 
+class Dense(nn.Module):
+    """flax ``nn.Dense``: ``x @ kernel + bias`` with a ``[in, out]`` kernel."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.randn((in_features, out_features), generator=generator)
+                                   / math.sqrt(in_features))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.kernel + self.bias
+
+
+class PReLU(nn.Module):
+    """Per-channel parametric ReLU (torch ``PReLU(num_parameters=C)``) over
+    the last axis; ``alpha`` starts at 0.25."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.full((channels,), 0.25))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, x * self.alpha.to(x.dtype))
+
+
+class BatchNorm(nn.Module):
+    """Batch norm over the last axis with torch-compatible parameters.
+
+    ``scale``/``bias`` are parameters (if ``affine``), ``mean``/``var``
+    buffers. ``train=True`` normalises by the batch's statistics (biased
+    variance) and moves the buffers by torch's momentum convention
+    (new = (1 − momentum)·old + momentum·batch, unbiased variance).
+    """
+
+    def __init__(self, channels: int, momentum: float = 0.1, epsilon: float = 1e-5,
+                 affine: bool = True):
+        super().__init__()
+        self.momentum, self.epsilon = momentum, epsilon
+        self.register_buffer("mean", torch.zeros(channels))
+        self.register_buffer("var", torch.ones(channels))
+        self.scale = nn.Parameter(torch.ones(channels)) if affine else None
+        self.bias = nn.Parameter(torch.zeros(channels)) if affine else None
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            axes = tuple(range(x.ndim - 1))
+            x32 = x.float()
+            batch_mean = x32.mean(dim=axes)
+            batch_var = x32.var(dim=axes, unbiased=False)
+            n = math.prod(x.shape[a] for a in axes)
+            with torch.no_grad():
+                unbiased = batch_var * (n / max(n - 1, 1))
+                self.mean.copy_((1 - self.momentum) * self.mean + self.momentum * batch_mean)
+                self.var.copy_((1 - self.momentum) * self.var + self.momentum * unbiased)
+            use_mean, use_var = batch_mean, batch_var
+        else:
+            use_mean, use_var = self.mean, self.var
+        y = (x - use_mean.to(x.dtype)) * torch.rsqrt(use_var + self.epsilon).to(x.dtype)
+        if self.scale is not None:
+            y = y * self.scale.to(x.dtype) + self.bias.to(x.dtype)
+        return y
+
+
 def conv_w(t) -> np.ndarray:
     """torch conv weight OIHW → HWIO."""
     return np.asarray(t).transpose(2, 3, 1, 0)
+
+
+def dense_w(t) -> np.ndarray:
+    """torch linear weight ``[out, in]`` → flax Dense kernel ``[in, out]``."""
+    return np.asarray(t).T
 
 
 def put(tree: Dict, dotted: str, value) -> None:
@@ -55,3 +127,14 @@ def put(tree: Dict, dotted: str, value) -> None:
     for k in keys[:-1]:
         node = node.setdefault(k, {})
     node[keys[-1]] = np.asarray(value)
+
+
+def bn_from_torch(params: Dict, stats: Dict, prefix_out: str,
+                  state: Mapping[str, np.ndarray], prefix_in: str,
+                  affine: bool = True) -> None:
+    """Copy one torch BatchNorm's 4 tensors into the two collections."""
+    if affine:
+        put(params, f"{prefix_out}/scale", state[f"{prefix_in}.weight"])
+        put(params, f"{prefix_out}/bias", state[f"{prefix_in}.bias"])
+    put(stats, f"{prefix_out}/mean", state[f"{prefix_in}.running_mean"])
+    put(stats, f"{prefix_out}/var", state[f"{prefix_in}.running_var"])

@@ -1,6 +1,6 @@
 """Fill a port module's parameters and buffers from the JAX package's variables.
 
-``variables`` is the flax tree ``{'params', 'buffers', 'ema'}`` as nested
+``variables`` is the flax tree ``{'params', 'batch_stats', 'buffers', 'ema'}`` as nested
 dicts of arrays (numpy, or anything `np.asarray` reads). The port names its
 parameters and buffers after the flax paths (``synthesis.L0_36_1024.weight``)
 and keeps the same layouts (HWIO conv weights, ``[out, in]`` dense
@@ -16,7 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
-COLLECTIONS = ("params", "buffers", "ema")
+COLLECTIONS = ("params", "batch_stats", "buffers", "ema")
 
 
 def _flatten(tree: Mapping, prefix: str, out: Dict[str, np.ndarray]) -> None:
