@@ -1,0 +1,56 @@
+"""Transform math and image helpers.
+
+Counterpart of the JAX package's `utils/common.py` (reference
+utils/common.py): `make_transform` (rotation + translation 3×3),
+`get_identity_transform` (inverted identity), `generate_random_transform`
+and `tensor2im` (NHWC). PIL is imported inside `tensor2im` only. The video
+writer `generate_mp4` waits for the video slice.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+
+
+def make_transform(translate: Tuple[float, float], angle: float) -> np.ndarray:
+    """3×3 rotation+translation matrix (degrees, image-fraction translate)."""
+    m = np.eye(3)
+    s = np.sin(angle / 360.0 * np.pi * 2)
+    c = np.cos(angle / 360.0 * np.pi * 2)
+    m[0][0] = c
+    m[0][1] = s
+    m[0][2] = translate[0]
+    m[1][0] = -s
+    m[1][1] = c
+    m[1][2] = translate[1]
+    return m
+
+
+def get_identity_transform() -> np.ndarray:
+    return np.linalg.inv(make_transform((0.0, 0.0), 0.0))
+
+
+def generate_random_transform(translate: float = 0.3, rotate: float = 25,
+                              rng: Optional[np.random.RandomState] = None) -> np.ndarray:
+    """The inverse of a random rotation and translation, drawn from ``rng``
+    (numpy's global state when None)."""
+    rng = rng or np.random
+    angle = rng.uniform(low=-rotate, high=rotate)
+    t = (rng.uniform(low=-translate, high=translate),
+         rng.uniform(low=-translate, high=translate))
+    return np.linalg.inv(make_transform(t, angle))
+
+
+def tensor2im(var):
+    """One NHWC (or HWC) image in [-1, 1], numpy or torch → PIL image."""
+    from PIL import Image
+
+    if hasattr(var, "detach"):
+        var = var.detach().float().cpu().numpy()
+    arr = np.asarray(var)
+    if arr.ndim == 4:
+        arr = arr[0]
+    arr = np.clip((arr + 1) / 2, 0, 1) * 255
+    return Image.fromarray(arr.astype("uint8"))
