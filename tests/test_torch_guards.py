@@ -334,3 +334,30 @@ def test_version_libraries_are_keyed_by_their_own_source(tmp_path):
     (tmp_path / "mma.cuh").write_text((tmp_path / "mma.cuh").read_text() + "// edit\n")
     assert cuda_build.library_path("filtered_lrelu_bwd", copy) != \
         cuda_build.library_path("filtered_lrelu_bwd")
+
+
+def test_inference_modules_import_without_jax_pillow_sklearn_or_orbax():
+    """The ReStyle, editing, checkpoint, data and CLI modules import with
+    Pillow, scikit-learn and orbax unavailable (the card machine has none of
+    them), and leave JAX unloaded; Pillow and scikit-learn load only where
+    an image is read or written or a boundary is fitted."""
+    code = ("import sys, json\n"
+            "for name in ('PIL', 'sklearn', 'orbax', 'jax', 'flax'):\n"
+            "    sys.modules[name] = None\n"
+            "import stylegan3_editing_tpu_torch.models.encoders, "
+            "stylegan3_editing_tpu_torch.models.backbones, "
+            "stylegan3_editing_tpu_torch.models.sg3.convert, "
+            "stylegan3_editing_tpu_torch.editing, stylegan3_editing_tpu_torch.runtime, "
+            "stylegan3_editing_tpu_torch.training, stylegan3_editing_tpu_torch.data, "
+            "stylegan3_editing_tpu_torch.configs, "
+            "stylegan3_editing_tpu_torch.utils.inference_utils, "
+            "stylegan3_editing_tpu_torch.utils.common, "
+            "stylegan3_editing_tpu_torch.scripts.inference_iterative, "
+            "stylegan3_editing_tpu_torch.scripts.inference_editing\n"
+            "print(json.dumps(sorted(m for m in sys.modules if sys.modules[m] is not None "
+            "and m.split('.')[0] in ('jax', 'flax', 'stylegan3_editing_tpu', 'PIL', "
+            "'sklearn', 'orbax'))))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
