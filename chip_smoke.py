@@ -51,7 +51,23 @@ Phases (any failure exits non-zero before the result lines):
    between the two forms against that of their plain versions); then each
    probe kernel against its plain version at [76, 76, 128] and
    [76, 76, 16896] in both dtypes, timed beside its plain version, its
-   library call (TF32 off) and its bound.
+   library call (TF32 off) and its bound;
+10. ReStyle inversion and InterFaceGAN editing at full width:
+   `RestyleNet(sg3_r_config(1024), ...)` with the e4e and the pSp encoder
+   (IR-SE-50 at 256², 6 input channels, 16 styles), seeded random weights
+   with non-trivial batch-norm statistics and a decoder ``w_avg`` from 256
+   mapped z. Two seeded faces: `get_average_image`, then
+   `run_restyle_iterations(n_iters=3)` without and with a landmarks
+   transform (each decode one launch per layer; the dual decode is one
+   call at batch 4): shapes, finiteness, 14 launches per decode call; the
+   same loop at batch 1 in fp32 through the kernels against
+   ``impl="ref"`` (every image within `IMAGE_TOL`, the codes within
+   `RESTYLE_CODES_TOL`); `FaceEditor` over factors -5..5 with three
+   seeded unit directions (22 images a call, bf16 route): 14 launches a
+   call and the factor-0 renders against ``decoder.synthesize``
+   (`EDIT_TOL`); timing of the encoder, the loop (s per batch, #1's fp32
+   route inside it at batch 2 and 4), the edit call (ms, images/s) and the
+   peak memory of each.
 
 PyTorch's TF32 flags stay at their defaults: matmuls run in fp32 by
 default, and the port holds its cuDNN convs to fp32 itself (`device.conv2d`;
@@ -86,6 +102,22 @@ FIR_SHAPES = [(76, 76, 128), (76, 76, 16896)]  # the TPU probe's plane; 132 x 12
 FIR_TAPS = 12
 FLRELU = {"filtered_lrelu_fwd": 0, "filtered_lrelu_bwd": 0}
 NO_FIR = {"fir_taps": 0, "fir_banded": 0}
+# ReStyle iterations 2-3 through the kernels vs impl="ref": each encodes the image
+# of the iteration before, so the first image's error (held to IMAGE_TOL) is all
+# that can reach them; every later image is held to IMAGE_TOL too, and its codes
+# to 1e-3 of max |codes|. The fp32 route reproduces the plain version bit for bit
+# on the H100 (phases 3-4 and this loop measured 0 on every layer and iteration).
+RESTYLE_CODES_TOL = 1e-3
+# Factor-0 edit renders (a batch of 22) vs the decoder's render of the codes (a
+# batch of 2), of max |ref|. The styles are normalised by their RMS over the whole
+# batch (reference modulated_conv2d), so the two batches scale each layer's bf16
+# input by other constants; demodulation cancels them in exact arithmetic but not
+# their bf16 roundings. L5-L14 run in bf16, about 8 roundings a layer each within
+# 2^-9: sqrt(80)·2^-9 = 1.75 % of max |ref| per render as independent errors, and
+# twice that for two renders (tests/test_torch_generator.py counts 4 layers so).
+EDIT_TOL = 3.5e-2
+RESTYLE_BATCH, RESTYLE_ITERS = 2, 3  # the CLIs' defaults
+EDIT_FACTORS = (-5, 6)               # inference_editing's default factor range
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -149,6 +181,197 @@ def fir_work(shape, taps: int, esize: int, matrices: bool):
     shaping = esize * (j * qw + i * qh) if matrices else 4 * 2 * taps
     nbytes = esize * qh * qw * c + 4 * i * j * c + shaping
     return nbytes, 2 * taps * (qh * j + i * j) * c
+
+
+def seeded_batch_norms(model: torch.nn.Module, seed: int) -> None:
+    """Non-trivial batch-norm statistics and affines, so that no BN of the
+    encoder is the identity."""
+    from stylegan3_editing_tpu_torch.models.backbones.common import BatchNorm
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for bn in (m for m in model.modules() if isinstance(m, BatchNorm)):
+            c = bn.mean.shape[0]
+            bn.mean.copy_(0.1 * torch.randn(c, generator=gen))
+            bn.var.copy_(0.5 + torch.randn(c, generator=gen).abs())
+            if bn.scale is not None:
+                bn.scale.copy_(1 + 0.1 * torch.randn(c, generator=gen))
+                bn.bias.copy_(0.1 * torch.randn(c, generator=gen))
+
+
+def restyle_phase(dev, card, layers, kernel_call):
+    """Phase 10: ReStyle inversion and InterFaceGAN editing at full width."""
+    from stylegan3_editing_tpu_torch.editing import FaceEditor
+    from stylegan3_editing_tpu_torch.models.encoders import (RestyleNet, get_average_image,
+                                                             run_restyle_iterations)
+    from stylegan3_editing_tpu_torch.models.sg3 import sg3_r_config
+    from stylegan3_editing_tpu_torch.ops import flrelu_cuda
+    from stylegan3_editing_tpu_torch.utils.common import make_transform
+
+    cfg = sg3_r_config(1024)
+    n = RESTYLE_BATCH
+    models = {}
+    for i, kind in enumerate(("ProgressiveBackboneEncoder", "BackboneEncoder")):
+        model = RestyleNet(cfg, kind, n_styles=cfg.num_ws, device=dev,
+                           generator=torch.Generator().manual_seed(10 + i))
+        seeded_batch_norms(model.encoder, 20 + i)
+        with torch.no_grad():
+            z = torch.randn((256, cfg.z_dim), generator=torch.Generator().manual_seed(30 + i))
+            model.decoder.mapping.w_avg.copy_(model.decoder.map(z.to(dev))[:, 0].mean(0))
+        models[kind] = model
+    faces = (torch.rand((n, 256, 256, 3), generator=torch.Generator().manual_seed(40)) * 2
+             - 1).to(dev)
+    lt = torch.from_numpy(make_transform((0.05, -0.03), 5.0)).float().to(dev)
+
+    def finite(*ts):
+        return all(bool(torch.isfinite(t).all()) for t in ts)
+
+    # Drive: the average image, then 3 iterations without and with the landmarks
+    # transform, for each encoder. Counts reset just before, read just after.
+    with torch.inference_mode():
+        flrelu_cuda.reset_launches()
+        runs = {}
+        for kind, model in models.items():
+            avg, lat = get_average_image(model)
+            runs[kind] = (avg, lat, run_restyle_iterations(model, faces, avg, lat,
+                                                           n_iters=RESTYLE_ITERS),
+                          run_restyle_iterations(model, faces, avg, lat, n_iters=RESTYLE_ITERS,
+                                                 landmarks_transform=lt))
+        torch.cuda.synchronize()
+        launches = dict(flrelu_cuda.launches)
+        decode_calls = len(models) * (1 + 2 * RESTYLE_ITERS)
+        print(f"restyle: {len(models)} encoders x (average image + {RESTYLE_ITERS} iterations "
+              f"single + {RESTYLE_ITERS} dual), batch {n}: launches {launches} for "
+              f"{decode_calls} decode calls")
+        if launches != {"filtered_lrelu_fwd": len(layers) * decode_calls, "filtered_lrelu_bwd": 0,
+                        **NO_FIR}:
+            raise SystemExit("expected 14 forward launches per decode call (a dual decode is "
+                             "one call at batch 4)")
+        for kind, (avg, lat, single, dual) in runs.items():
+            ok = tuple(avg.shape) == (256, 256, 3) and finite(avg, lat)
+            for (a, u, c), (da, du, dc) in zip(single, dual):
+                ok = ok and u is None and tuple(a.shape) == tuple(da.shape) == tuple(
+                    du.shape) == (n, 256, 256, 3) and tuple(c.shape) == tuple(dc.shape) == (
+                    n, cfg.num_ws, 512) and finite(a, c, da, du, dc)
+            dual_err = float((dual[0][0] - single[0][0]).abs().max())
+            code_gap = float((single[-1][2] - single[0][2]).abs().max())
+            print(f"restyle {kind}: shapes and values ok {ok}; iteration 1 aligned image, "
+                  f"dual decode (batch {2 * n}) vs single decode (batch {n}): max abs err "
+                  f"{dual_err:.3e} (tol {IMAGE_TOL:g}); codes moved {code_gap:.3g} from "
+                  f"iteration 1 to {RESTYLE_ITERS}; max |codes| "
+                  f"{float(single[-1][2].abs().max()):.3g}")
+            if not (ok and dual_err <= IMAGE_TOL and code_gap > 0):
+                raise SystemExit(f"ReStyle {kind}: wrong shapes, non-finite values, or the dual "
+                                 "decode disagrees with the single one")
+
+        # The same loop at batch 1 in fp32: kernels vs impl="ref".
+        model = models["ProgressiveBackboneEncoder"]
+        out = {}
+        for impl in ("auto", "ref"):
+            avg, lat = get_average_image(model, impl=impl)
+            out[impl] = (avg, run_restyle_iterations(model, faces[:1], avg, lat,
+                                                     n_iters=RESTYLE_ITERS, impl=impl))
+        avg_err = float((out["auto"][0] - out["ref"][0]).abs().max())
+        print(f"restyle e4e batch 1 fp32, kernels vs impl='ref': average image max abs err "
+              f"{avg_err:.3e} (tol {IMAGE_TOL:g})")
+        ok = avg_err <= IMAGE_TOL
+        for i, ((a, _, c), (ra, _, rc)) in enumerate(zip(out["auto"][1], out["ref"][1])):
+            c_err, i_err = float((c - rc).abs().max()), float((a - ra).abs().max())
+            c_tol = RESTYLE_CODES_TOL * float(rc.abs().max())
+            print(f"  iteration {i + 1}: codes max abs err {c_err:.3e} (tol {c_tol:.3e}: "
+                  f"{RESTYLE_CODES_TOL:g} of max |ref| {float(rc.abs().max()):.3g}), image max "
+                  f"abs err {i_err:.3e} (tol {IMAGE_TOL:g}, max |ref| {float(ra.abs().max()):.3g})")
+            ok = ok and i_err <= IMAGE_TOL and c_err <= c_tol
+        if not ok:
+            raise SystemExit("ReStyle through the kernels disagrees with impl='ref'")
+        del out
+
+        # Editing: three seeded unit directions over the CLI's factor range.
+        codes = runs["ProgressiveBackboneEncoder"][2][-1][2]
+        rng = np.random.RandomState(50)
+        directions = {}
+        for name in ("age", "smile", "pose"):
+            d = rng.randn(1, 512).astype(np.float32)
+            directions[name] = d / np.linalg.norm(d)
+        editor = FaceEditor(model.decoder, directions=directions)
+        n_factors = len(range(*EDIT_FACTORS))
+        plain = model.decoder.synthesize(codes)
+        flrelu_cuda.reset_launches()
+        edits = {name: editor.edit(codes, name, factor_range=EDIT_FACTORS)[0]
+                 for name in directions}
+        torch.cuda.synchronize()
+        edit_launches = dict(flrelu_cuda.launches)
+        print(f"edit: {len(directions)} calls of {n_factors} factors x batch {n} = "
+              f"{n_factors * n} images each; launches {edit_launches}")
+        if edit_launches != {"filtered_lrelu_fwd": len(layers) * len(directions),
+                             "filtered_lrelu_bwd": 0, **NO_FIR}:
+            raise SystemExit("expected 14 forward launches per edit call")
+        atol, rtol = BF16_TOL
+        for name, images in edits.items():
+            zero = images[-EDIT_FACTORS[0]]
+            err = (zero - plain).abs()
+            res = cfg.img_resolution
+            one_rounding = bool((err <= atol + rtol * plain.abs()).all())
+            ok = (len(images) == n_factors and all(tuple(im.shape) == (n, res, res, 3)
+                                                   for im in images)
+                  and finite(*images) and float(err.max()) <= EDIT_TOL * float(plain.abs().max()))
+            print(f"edit {name}: factor-0 renders (batch {n_factors * n}) vs "
+                  f"decoder.synthesize(codes) (batch {n}): max abs err {float(err.max()):.3e}, "
+                  f"max |ref| {float(plain.abs().max()):.3g} (tol {EDIT_TOL:g} of it; within "
+                  f"one bf16 rounding, atol {atol:g} + rtol {rtol:g}·|ref|: {one_rounding}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"edit {name}: wrong shapes, non-finite values or factor-0 "
+                                 "renders off the decoder's")
+        del edits, plain
+
+        # Timing, after the drive above as warm-up.
+        x6 = torch.cat([faces, runs["ProgressiveBackboneEncoder"][0][None].expand(n, -1, -1, -1)],
+                       dim=-1)
+        for kind, model in models.items():
+            torch.cuda.reset_peak_memory_stats()
+            enc_ms = time_ms(lambda: model.encoder(x6), 10)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            print(f"time encoder {kind} (IR-SE-50, 256², 6 channels, {cfg.num_ws} styles), batch {n}: "
+                  f"{enc_ms:.4f} ms, peak memory {peak:.3f} GiB {card}")
+        model = models["ProgressiveBackboneEncoder"]
+        avg, lat = runs["ProgressiveBackboneEncoder"][:2]
+        loop_s = {}
+        for name, kwargs in (("single decode", {}), ("dual decode", {"landmarks_transform": lt})):
+            reps = 3
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                run_restyle_iterations(model, faces, avg, lat, n_iters=RESTYLE_ITERS, **kwargs)
+            torch.cuda.synchronize()
+            loop_s[name] = (time.perf_counter() - t0) / reps
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            print(f"time restyle e4e {RESTYLE_ITERS} iterations, {name}, batch {n}: "
+                  f"{loop_s[name]:.4f} s per batch, peak memory {peak:.3f} GiB {card}")
+        # Kernel #1's fp32 route on the 14 layers at the decode batches.
+        for batch, name in ((n, "single decode"), (2 * n, "dual decode")):
+            total = 0.0
+            for i, s in enumerate(layers):
+                gen = torch.Generator(device=dev).manual_seed(500 + i)
+                x = torch.randn((batch, s.in_size[1], s.in_size[0], s.out_channels),
+                                generator=gen, device=dev)
+                b = torch.randn((s.out_channels,), generator=gen, device=dev)
+                total += time_ms(lambda: kernel_call(s, x, b), 5)
+                del x, b
+            share = RESTYLE_ITERS * total / (loop_s[name] * 1e3)
+            print(f"time kernel #1 fp32 route, {len(layers)} layers, batch {batch}: {total:.4f} ms per "
+                  f"decode, {RESTYLE_ITERS * total:.4f} ms per {RESTYLE_ITERS}-iteration "
+                  f"batch = {100 * share:.2f} % of the {name} loop {card}")
+        torch.cuda.empty_cache()
+        reps = 5
+        torch.cuda.reset_peak_memory_stats()
+        edit_ms = time_ms(lambda: editor.edit(codes, "age", factor_range=EDIT_FACTORS), reps,
+                          warmup=1)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"time edit call, {n_factors} factors x batch {n} = {n_factors * n} images, bf16 "
+              f"route: {edit_ms:.4f} ms per call, {n_factors * n * 1e3 / edit_ms:.4f} images/s, "
+              f"peak memory {peak:.3f} GiB {card}")
 
 
 def main() -> int:
@@ -635,6 +858,12 @@ def main() -> int:
                     del got, ref, lib_out
                 del p, mw, mh, w2d
                 torch.cuda.empty_cache()
+
+    # 10. ReStyle inversion and InterFaceGAN editing at full width.
+    del pti, lpips, G, ws, targets, pivot
+    torch.cuda.empty_cache()
+    restyle_phase(dev, card, layers, kernel_call)
+    torch.cuda.empty_cache()
 
     def fir_entry(name, replaces):
         row = fir_rows[name, FIR_SHAPES[1], torch.bfloat16]

@@ -482,3 +482,73 @@ def test_fir_kernels_raise_on_unsupported_input(cuda_device):
         fir_cuda.fir_banded_cuda(p, mw[:, 1:].contiguous(), mh)
     with pytest.raises(ValueError):  # more taps than the plane is wide
         fir_cuda.fir_taps_cuda(p, hann_taps(22), taps)
+
+
+# Slim SG3-R decoder for the ReStyle and editing tests: u=2 and u=4, radial
+# and separable layers, the top resolutions in bf16 unless force_fp32.
+SLIM_R = dict(channel_base=2048, channel_max=64, num_layers=6)
+
+
+@pytest.mark.gpu
+def test_restyle_through_the_kernels_matches_plain(cuda_device):
+    """RestyleNet (e4e, IR-SE-50) on a slim SG3-R decoder on the card: the
+    average image and two iterations with a landmarks transform, through the
+    forward kernel's fp32 route (one launch per filtered layer per decode
+    call; the dual decode is one call), against ``impl="ref"``. Images within
+    atol 1e-3 (`chip_smoke.py`'s fp32 image tolerance), codes within 1e-3 of
+    max |codes| (the second iteration encodes the first's image)."""
+    from stylegan3_editing_tpu_torch.models.encoders import (RestyleNet, get_average_image,
+                                                             run_restyle_iterations)
+
+    cfg = sg3_r_config(64, **SLIM_R)
+    n_layers = sum(s.up_filter is not None for s in build_synthesis_layout(cfg).layers)
+    model = RestyleNet(cfg, "ProgressiveBackboneEncoder", n_styles=cfg.num_ws,
+                       device=cuda_device)
+    gen = torch.Generator().manual_seed(3)
+    faces = (torch.rand((2, 256, 256, 3), generator=gen) * 2 - 1).to(cuda_device)
+    lt = torch.eye(3)
+    lt[0, 2] = 0.07
+    out = {}
+    for impl in ("auto", "ref"):
+        flrelu_cuda.reset_launches()
+        with torch.no_grad():
+            avg, lat = get_average_image(model, impl=impl)
+            out[impl] = [avg] + [t for a, u, c in run_restyle_iterations(
+                model, faces, avg, lat, n_iters=2, landmarks_transform=lt.to(cuda_device),
+                impl=impl) for t in (a, u, c)]
+        torch.cuda.synchronize()
+        assert flrelu_cuda.launches["filtered_lrelu_fwd"] == {"auto": 3 * n_layers,
+                                                              "ref": 0}[impl]
+    for i, (got, ref) in enumerate(zip(out["auto"], out["ref"])):
+        codes = ref.ndim == 3 and ref.shape[-1] == 512
+        atol = 1e-3 * float(ref.abs().max()) if codes else 1e-3
+        torch.testing.assert_close(got, ref, rtol=0, atol=atol, msg=f"output {i}")
+
+
+@pytest.mark.gpu
+def test_face_editor_range_matches_per_factor_renders(cuda_device):
+    """`FaceEditor` on the card: a factor range is one synthesis (one launch
+    per filtered layer, bf16 route on the top layers), and each factor's
+    images match that factor's own render at batch 2 within 2.2 % of max
+    |ref|: the styles are normalised over the whole batch (reference
+    modulated_conv2d), so the two batches round their bf16 inputs apart
+    (the generator tests' bf16 image tolerance)."""
+    from stylegan3_editing_tpu_torch.editing import FaceEditor
+
+    cfg = sg3_r_config(64, **SLIM_R)
+    n_layers = sum(s.up_filter is not None for s in build_synthesis_layout(cfg).layers)
+    G = Generator(cfg, device=cuda_device)
+    gen = torch.Generator().manual_seed(4)
+    d = torch.randn((1, 512), generator=gen)
+    editor = FaceEditor(G, directions={"d": (d / d.norm()).numpy()})
+    with torch.no_grad():
+        ws = G.map(torch.randn((2, cfg.z_dim), generator=gen).to(cuda_device))
+        flrelu_cuda.reset_launches()
+        images, latents = editor.edit(ws, "d", factor_range=(-2, 3))
+        torch.cuda.synchronize()
+        assert flrelu_cuda.launches["filtered_lrelu_fwd"] == n_layers
+        for f, img, lat in zip(range(-2, 3), images, latents):
+            single, single_lat = editor.edit(ws, "d", factor=float(f))
+            assert torch.equal(lat, single_lat)
+            torch.testing.assert_close(img, single, rtol=0,
+                                       atol=2.2e-2 * float(single.abs().max()), msg=f"f={f}")
