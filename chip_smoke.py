@@ -332,8 +332,8 @@ def restyle_phase(dev, card, layers, kernel_call):
             torch.cuda.reset_peak_memory_stats()
             enc_ms = time_ms(lambda: model.encoder(x6), 10)
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            print(f"time encoder {kind} (IR-SE-50, 256², 6 channels, {cfg.num_ws} styles), batch {n}: "
-                  f"{enc_ms:.4f} ms, peak memory {peak:.3f} GiB {card}")
+            print(f"time encoder {kind} (IR-SE-50, 256², 6 channels, {cfg.num_ws} styles), "
+                  f"batch {n}: {enc_ms:.4f} ms, peak memory {peak:.3f} GiB {card}")
         model = models["ProgressiveBackboneEncoder"]
         avg, lat = runs["ProgressiveBackboneEncoder"][:2]
         loop_s = {}
@@ -360,9 +360,10 @@ def restyle_phase(dev, card, layers, kernel_call):
                 total += time_ms(lambda: kernel_call(s, x, b), 5)
                 del x, b
             share = RESTYLE_ITERS * total / (loop_s[name] * 1e3)
-            print(f"time kernel #1 fp32 route, {len(layers)} layers, batch {batch}: {total:.4f} ms per "
-                  f"decode, {RESTYLE_ITERS * total:.4f} ms per {RESTYLE_ITERS}-iteration "
-                  f"batch = {100 * share:.2f} % of the {name} loop {card}")
+            print(f"time kernel #1 fp32 route, {len(layers)} layers, batch {batch}: "
+                  f"{total:.4f} ms per decode, {RESTYLE_ITERS * total:.4f} ms per "
+                  f"{RESTYLE_ITERS}-iteration batch = {100 * share:.2f} % of the {name} loop "
+                  f"{card}")
         torch.cuda.empty_cache()
         reps = 5
         torch.cuda.reset_peak_memory_stats()

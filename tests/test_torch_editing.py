@@ -113,7 +113,8 @@ def test_pseudo_align_latents_matches_jax():
     rng = np.random.RandomState(6)
     ws, w_avg = rng.randn(3, 6, 512).astype(np.float32), rng.randn(512).astype(np.float32)
     got = pseudo_align_latents(torch.from_numpy(ws), torch.from_numpy(w_avg))
-    np.testing.assert_array_equal(got.numpy(), np.asarray(jig.pseudo_align_latents(jnp.asarray(ws), jnp.asarray(w_avg))))
+    ref = jig.pseudo_align_latents(jnp.asarray(ws), jnp.asarray(w_avg))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     np.testing.assert_array_equal(ws[:, 1:], got[:, 1:].numpy())
 
 

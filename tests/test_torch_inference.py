@@ -161,9 +161,8 @@ def test_npz_variables_round_trip(tmp_path):
     assert sorted(np.load(tmp_path / "port.npz").files) == \
         sorted(np.load(tmp_path / "jax.npz").files)
     assert_trees_equal(npz_to_variables(tmp_path / "jax.npz"), variables)
-    assert_trees_equal(jax.tree_util.tree_map(np.asarray,
-                                              jconvert.npz_to_variables(str(tmp_path / "port.npz"))),
-                       variables)
+    back = jconvert.npz_to_variables(str(tmp_path / "port.npz"))
+    assert_trees_equal(jax.tree_util.tree_map(np.asarray, back), variables)
     gen = Generator(sg3_r_config(64, **DECODER), device="cpu")
     load_jax_variables(gen, npz_to_variables(tmp_path / "port.npz"))
     np.testing.assert_array_equal(gen.mapping.w_avg.numpy(), variables["ema"]["mapping"]["w_avg"])
