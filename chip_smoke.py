@@ -351,19 +351,24 @@ def restyle_phase(dev, card, layers, kernel_call):
                   f"{loop_s[name]:.4f} s per batch, peak memory {peak:.3f} GiB {card}")
         # Kernel #1's fp32 route on the 14 layers at the decode batches.
         for batch, name in ((n, "single decode"), (2 * n, "dual decode")):
-            total = 0.0
+            total = bound = 0.0
             for i, s in enumerate(layers):
                 gen = torch.Generator(device=dev).manual_seed(500 + i)
                 x = torch.randn((batch, s.in_size[1], s.in_size[0], s.out_channels),
                                 generator=gen, device=dev)
                 b = torch.randn((s.out_channels,), generator=gen, device=dev)
                 total += time_ms(lambda: kernel_call(s, x, b), 5)
+                nbytes, up_flops, down_flops = flrelu_work(
+                    tuple(x.shape), (batch, s.out_size[1], s.out_size[0], s.out_channels),
+                    s.up_factor, len(s.up_filter), s.down_filter.shape[0],
+                    s.down_filter.ndim == 2, x.element_size())
+                bound += max(nbytes / HBM_BYTES_PER_S, (up_flops + down_flops) / FP32_FLOPS) * 1e3
                 del x, b
             share = RESTYLE_ITERS * total / (loop_s[name] * 1e3)
             print(f"time kernel #1 fp32 route, {len(layers)} layers, batch {batch}: "
-                  f"{total:.4f} ms per decode, {RESTYLE_ITERS * total:.4f} ms per "
-                  f"{RESTYLE_ITERS}-iteration batch = {100 * share:.2f} % of the {name} loop "
-                  f"{card}")
+                  f"{total:.4f} ms per decode (bound {bound:.4f} ms: its bytes or its fp32 "
+                  f"FLOPs on the CUDA cores), {RESTYLE_ITERS * total:.4f} ms per {RESTYLE_ITERS}-iteration batch "
+                  f"= {100 * share:.2f} % of the {name} loop {card}")
         torch.cuda.empty_cache()
         reps = 5
         torch.cuda.reset_peak_memory_stats()
