@@ -81,10 +81,11 @@ class BatchNorm(nn.Module):
     (new = (1 − momentum)·old + momentum·batch, unbiased variance).
     """
 
-    def __init__(self, channels: int, momentum: float = 0.1, epsilon: float = 1e-5,
-                 affine: bool = True):
+    momentum = 0.1
+    epsilon = 1e-5
+
+    def __init__(self, channels: int, affine: bool = True):
         super().__init__()
-        self.momentum, self.epsilon = momentum, epsilon
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
         self.scale = nn.Parameter(torch.ones(channels)) if affine else None

@@ -9,7 +9,7 @@ sidecar. Parsed from the CLI with `utils.cli.parse_dataclass`.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import List, Optional
 
 
 @dataclasses.dataclass

@@ -26,7 +26,6 @@ import sys
 from pathlib import Path
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
