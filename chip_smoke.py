@@ -199,6 +199,32 @@ def seeded_batch_norms(model: torch.nn.Module, seed: int) -> None:
                 bn.bias.copy_(0.1 * torch.randn(c, generator=gen))
 
 
+def encoder_work(encoder: torch.nn.Module, x: torch.Tensor):
+    """(bytes, flops) of one encoder call on x: x and every weight read once
+    and the codes written once; 2 FLOPs a multiply-add of its convs and
+    linears, counted from the shapes each one sees (forward hooks)."""
+    from stylegan3_editing_tpu_torch.models.backbones.common import Conv2d
+    from stylegan3_editing_tpu_torch.models.sg3.layers import FullyConnected
+
+    flops = []
+
+    def hook(module, inputs, out):
+        fan_in = (module.kernel.shape[0] * module.kernel.shape[1] * module.kernel.shape[2]
+                  if isinstance(module, Conv2d) else module.weight.shape[1])
+        flops.append(2 * out.numel() * fan_in)
+
+    handles = [m.register_forward_hook(hook) for m in encoder.modules()
+               if isinstance(m, (Conv2d, FullyConnected))]
+    try:
+        codes = encoder(x)
+    finally:
+        for h in handles:
+            h.remove()
+    weights = sum(t.numel() * t.element_size() for t in encoder.state_dict().values())
+    return x.numel() * x.element_size() + weights + codes.numel() * codes.element_size(), \
+        sum(flops)
+
+
 def restyle_phase(dev, card, layers, kernel_call):
     """Phase 10: ReStyle inversion and InterFaceGAN editing at full width."""
     from stylegan3_editing_tpu_torch.editing import FaceEditor
@@ -328,12 +354,18 @@ def restyle_phase(dev, card, layers, kernel_call):
         # Timing, after the drive above as warm-up.
         x6 = torch.cat([faces, runs["ProgressiveBackboneEncoder"][0][None].expand(n, -1, -1, -1)],
                        dim=-1)
-        for kind, model in models.items():
+        # In turns (e4e, pSp, pSp, e4e): the host issues ~400 small launches a call.
+        for kind in ("ProgressiveBackboneEncoder", "BackboneEncoder") * 2:
+            model = models[kind]
+            nbytes, flops = encoder_work(model.encoder, x6)
+            bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
             torch.cuda.reset_peak_memory_stats()
             enc_ms = time_ms(lambda: model.encoder(x6), 10)
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
             print(f"time encoder {kind} (IR-SE-50, 256², 6 channels, {cfg.num_ws} styles), "
-                  f"batch {n}: {enc_ms:.4f} ms, peak memory {peak:.3f} GiB {card}")
+                  f"batch {n}: {enc_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
+                  f"({'operations' if ops_ms > bytes_ms else 'bytes'}: {nbytes / 1e6:.1f} MB, "
+                  f"{flops / 1e9:.2f} GFLOP at the fp32 rate), peak memory {peak:.3f} GiB {card}")
         model = models["ProgressiveBackboneEncoder"]
         avg, lat = runs["ProgressiveBackboneEncoder"][:2]
         loop_s = {}
