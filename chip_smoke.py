@@ -354,7 +354,7 @@ def restyle_phase(dev, card, layers, kernel_call):
         # Timing, after the drive above as warm-up.
         x6 = torch.cat([faces, runs["ProgressiveBackboneEncoder"][0][None].expand(n, -1, -1, -1)],
                        dim=-1)
-        # In turns (e4e, pSp, pSp, e4e): the host issues ~400 small launches a call.
+        # In turns (e4e, pSp, e4e, pSp): the host issues some hundred small launches a call.
         for kind in ("ProgressiveBackboneEncoder", "BackboneEncoder") * 2:
             model = models[kind]
             nbytes, flops = encoder_work(model.encoder, x6)
