@@ -60,14 +60,20 @@ Phases (any failure exits non-zero before the result lines):
    `run_restyle_iterations(n_iters=3)` without and with a landmarks
    transform (each decode one launch per layer; the dual decode is one
    call at batch 4): shapes, finiteness, 14 launches per decode call; the
-   same loop at batch 1 in fp32 through the kernels against
-   ``impl="ref"`` (every image within `IMAGE_TOL`, the codes within
-   `RESTYLE_CODES_TOL`); `FaceEditor` over factors -5..5 with three
-   seeded unit directions (22 images a call, bf16 route): 14 launches a
-   call and the factor-0 renders against ``decoder.synthesize``
-   (`EDIT_TOL`); timing of the encoder, the loop (s per batch, #1's fp32
-   route inside it at batch 2 and 4), the edit call (ms, images/s) and the
-   peak memory of each.
+   loop at batch 2 with the transform (every decode the dual one at batch
+   4) in fp32 through the kernels against ``impl="ref"`` (every image
+   within `IMAGE_TOL`, the codes within `RESTYLE_CODES_TOL`); `FaceEditor`
+   over factors -5..5 with three seeded unit directions (22 images a call,
+   bf16 route): 14 launches a call, and the factor-0 renders against
+   ``decoder.synthesize`` within `RANGE_RENDER_TOL`, which the neighbouring
+   factors' renders and the pair swapped must exceed; timing of the
+   encoders, the loop (s per batch) and the edit call (ms, images/s) with
+   the peak memory of each, and one `torch.profiler` trace of each loop
+   and of an edit call (device busy and idle share, kernel #1's launches
+   and device time, the encoder's and decoder's host and device time);
+   then kernel #1 at each batch the path gives it (fp32 route at 2 and 4,
+   each layer's dtype at 22): images 0 and batch - 1 against the plain
+   version, and its time alone beside its bound.
 
 PyTorch's TF32 flags stay at their defaults: matmuls run in fp32 by
 default, and the port holds its cuDNN convs to fp32 itself (`device.conv2d`;
@@ -108,14 +114,6 @@ NO_FIR = {"fir_taps": 0, "fir_banded": 0}
 # to 1e-3 of max |codes|. The fp32 route reproduces the plain version bit for bit
 # on the H100 (phases 3-4 and this loop measured 0 on every layer and iteration).
 RESTYLE_CODES_TOL = 1e-3
-# Factor-0 edit renders (a batch of 22) vs the decoder's render of the codes (a
-# batch of 2), of max |ref|. The styles are normalised by their RMS over the whole
-# batch (reference modulated_conv2d), so the two batches scale each layer's bf16
-# input by other constants; demodulation cancels them in exact arithmetic but not
-# their bf16 roundings. L5-L14 run in bf16, about 8 roundings a layer each within
-# 2^-9: sqrt(80)·2^-9 = 1.75 % of max |ref| per render as independent errors, and
-# twice that for two renders (tests/test_torch_generator.py counts 4 layers so).
-EDIT_TOL = 3.5e-2
 RESTYLE_BATCH, RESTYLE_ITERS = 2, 3  # the CLIs' defaults
 EDIT_FACTORS = (-5, 6)               # inference_editing's default factor range
 
@@ -225,9 +223,142 @@ def encoder_work(encoder: torch.nn.Module, x: torch.Tensor):
         sum(flops)
 
 
-def restyle_phase(dev, card, layers, kernel_call):
-    """Phase 10: ReStyle inversion and InterFaceGAN editing at full width."""
+def layer_rows(dev, card, layers, layer_call, kernel_call, batch, fp32, seed, what):
+    """Kernel #1 on the 14 layers at ``batch``, as a path gives them to it: in
+    the fp32 route (``fp32``) or each layer's own dtype. Images 0 and
+    batch - 1 of the kernel's output are held against the plain version on
+    the same inputs (upcast, as in phase 3), then the kernel is timed beside
+    its bound (phase 5's: a bf16 radial layer's down pass at the tensor-core
+    rate). Returns (ms, bound ms, max abs err)."""
+    from stylegan3_editing_tpu_torch.ops import flrelu_cuda
+
+    total = bound = max_err = 0.0
+    for i, s in enumerate(layers):
+        dtype = torch.bfloat16 if s.use_bf16 and not fp32 else torch.float32
+        gen = torch.Generator(device=dev).manual_seed(seed + i)
+        x = torch.randn((batch, s.in_size[1], s.in_size[0], s.out_channels), generator=gen,
+                        device=dev).to(dtype)
+        b = torch.randn((s.out_channels,), generator=gen, device=dev).to(dtype)
+        out = kernel_call(s, x, b)
+        atol, rtol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
+        for j in (0, batch - 1):
+            ref = layer_call(s, x[j:j + 1].float(), b.float(), impl="ref")
+            err = (out[j:j + 1].float() - ref).abs()
+            max_err = max(max_err, float(err.max()))
+            if not bool((err <= atol + rtol * ref.abs()).all()):
+                raise SystemExit(f"kernel disagrees with the plain version on {s.name}, "
+                                 f"{what}, batch {batch}, image {j}")
+            del ref, err
+        total += time_ms(lambda: kernel_call(s, x, b), 5)
+        nbytes, up_flops, down_flops = flrelu_work(
+            tuple(x.shape), tuple(out.shape), s.up_factor, len(s.up_filter),
+            s.down_filter.shape[0], s.down_filter.ndim == 2, x.element_size())
+        down_rate = TC_FLOPS if flrelu_cuda.mma_down(dtype, s.down_filter) else FP32_FLOPS
+        bound += max(nbytes / HBM_BYTES_PER_S,
+                     up_flops / FP32_FLOPS + down_flops / down_rate) * 1e3
+        del x, b, out
+    torch.cuda.empty_cache()
+    print(f"kernel #1, {what}: {len(layers)} layers at batch {batch}, images 0 and {batch - 1} "
+          f"of each against the plain version ok (max abs err {max_err:.3e}); "
+          f"{total:.4f} ms a call, alone (bound {bound:.4f} ms) {card}")
+    return total, bound, max_err
+
+
+def device_trace(fn, model=None):
+    """One call of ``fn`` under `torch.profiler`, read from the trace's kernel
+    events: the wall time, the device's busy time (the union of its kernels)
+    and its idle share between the first kernel's start and the last one's
+    end, and kernel #1's launches and device time. With ``model`` (a
+    `RestyleNet`) each ``encode`` and ``decode`` call is a range, and a
+    kernel is charged to the range its launch call fell in: the ranges' host
+    time, their kernels' device time and the idle share of those kernels'
+    spans. Returns None when the trace holds no kernel."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def annotated(name, method):
+        def call(*args, **kwargs):
+            with record_function(name):
+                return method(*args, **kwargs)
+        return call
+
+    names = ("encode", "decode") if model is not None else ()
+    for name in names:
+        setattr(model, name, annotated(name, getattr(model, name)))
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for name in names:
+            delattr(model, name)  # the instance attribute: the method shows again
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel" and e.get("ph") == "X"]
+    if not kernels:
+        return None
+
+    def busy_span(ks):
+        ivs = sorted((k["ts"], k["ts"] + k["dur"]) for k in ks)
+        busy, (lo, hi) = 0.0, ivs[0]
+        for a, b in ivs[1:]:
+            if a > hi:
+                busy, lo, hi = busy + hi - lo, a, b
+            else:
+                hi = max(hi, b)
+        return busy + hi - lo, ivs[-1][1] - ivs[0][0]
+
+    busy, span = busy_span(kernels)
+    fwd = [k for k in kernels if "flrelu_fwd_kernel" in k["name"]]
+    out = {"wall_ms": wall * 1e3, "busy_ms": busy / 1e3, "span_ms": span / 1e3,
+           "idle": 1 - busy / span, "kernels": len(kernels), "flrelu_launches": len(fwd),
+           "flrelu_ms": sum(k["dur"] for k in fwd) / 1e3}
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    for name in names:
+        ranges = [(e["ts"], e["ts"] + e["dur"]) for e in events
+                  if e.get("cat") == "user_annotation" and e.get("name") == name]
+        calls = [[k for k in kernels
+                  if a <= launched.get(k.get("args", {}).get("correlation"), -1.0) <= b]
+                 for a, b in ranges]
+        spans = [busy_span(ks) for ks in calls if ks]
+        out[name] = {"calls": len(ranges), "host_ms": sum(b - a for a, b in ranges) / 1e3,
+                     "kernels": sum(map(len, calls)),
+                     "device_ms": sum(k["dur"] for ks in calls for k in ks) / 1e3,
+                     "idle": 1 - sum(b for b, _ in spans) / max(sum(s for _, s in spans), 1e-9)}
+    return out
+
+
+def print_trace(what, t, card):
+    if t is None:
+        print(f"trace {what}: the profiler recorded no kernel on the device; in-path device "
+              f"times not measured")
+        return
+    print(f"trace {what}: wall {t['wall_ms']:.4f} ms under the profiler; {t['kernels']} "
+          f"kernels, device busy {t['busy_ms']:.4f} ms of the {t['span_ms']:.4f} ms from the "
+          f"first kernel's start to the last one's end (idle {100 * t['idle']:.2f} %); kernel "
+          f"#1 {t['flrelu_launches']} launches, {t['flrelu_ms']:.4f} ms on the device "
+          f"({100 * t['flrelu_ms'] / t['busy_ms']:.2f} % of busy, "
+          f"{100 * t['flrelu_ms'] / t['span_ms']:.2f} % of the span) {card}")
+    for name in ("encode", "decode"):
+        if name in t:
+            r = t[name]
+            print(f"trace {what}, {name}: {r['calls']} calls, host {r['host_ms']:.4f} ms, "
+                  f"{r['kernels']} kernels launched inside, {r['device_ms']:.4f} ms on the "
+                  f"device, idle {100 * r['idle']:.2f} % of their spans {card}")
+
+
+def restyle_phase(dev, card, layers, layer_call, kernel_call):
+    """Phase 10: ReStyle inversion and InterFaceGAN editing at full width.
+    Returns the largest error of kernel #1 against its plain version."""
     from stylegan3_editing_tpu_torch.editing import FaceEditor
+    from stylegan3_editing_tpu_torch.editing.interfacegan import RANGE_RENDER_TOL
     from stylegan3_editing_tpu_torch.models.encoders import (RestyleNet, get_average_image,
                                                              run_restyle_iterations)
     from stylegan3_editing_tpu_torch.models.sg3 import sg3_r_config
@@ -290,27 +421,34 @@ def restyle_phase(dev, card, layers, kernel_call):
                 raise SystemExit(f"ReStyle {kind}: wrong shapes, non-finite values, or the dual "
                                  "decode disagrees with the single one")
 
-        # The same loop at batch 1 in fp32: kernels vs impl="ref".
+        # The same loop at the CLI's batch with the landmarks transform, so every
+        # decode is the dual one at batch 4: kernels vs impl="ref".
         model = models["ProgressiveBackboneEncoder"]
         out = {}
         for impl in ("auto", "ref"):
             avg, lat = get_average_image(model, impl=impl)
-            out[impl] = (avg, run_restyle_iterations(model, faces[:1], avg, lat,
-                                                     n_iters=RESTYLE_ITERS, impl=impl))
+            out[impl] = (avg, run_restyle_iterations(model, faces, avg, lat,
+                                                     n_iters=RESTYLE_ITERS,
+                                                     landmarks_transform=lt, impl=impl))
+            torch.cuda.empty_cache()
         avg_err = float((out["auto"][0] - out["ref"][0]).abs().max())
-        print(f"restyle e4e batch 1 fp32, kernels vs impl='ref': average image max abs err "
-              f"{avg_err:.3e} (tol {IMAGE_TOL:g})")
+        print(f"restyle e4e batch {n}, dual decode (batch {2 * n}), fp32, kernels vs "
+              f"impl='ref': average image max abs err {avg_err:.3e} (tol {IMAGE_TOL:g})")
         ok = avg_err <= IMAGE_TOL
-        for i, ((a, _, c), (ra, _, rc)) in enumerate(zip(out["auto"][1], out["ref"][1])):
-            c_err, i_err = float((c - rc).abs().max()), float((a - ra).abs().max())
+        for i, ((a, u, c), (ra, ru, rc)) in enumerate(zip(out["auto"][1], out["ref"][1])):
+            c_err = float((c - rc).abs().max())
+            a_err, u_err = float((a - ra).abs().max()), float((u - ru).abs().max())
             c_tol = RESTYLE_CODES_TOL * float(rc.abs().max())
             print(f"  iteration {i + 1}: codes max abs err {c_err:.3e} (tol {c_tol:.3e}: "
-                  f"{RESTYLE_CODES_TOL:g} of max |ref| {float(rc.abs().max()):.3g}), image max "
-                  f"abs err {i_err:.3e} (tol {IMAGE_TOL:g}, max |ref| {float(ra.abs().max()):.3g})")
-            ok = ok and i_err <= IMAGE_TOL and c_err <= c_tol
+                  f"{RESTYLE_CODES_TOL:g} of max |ref| {float(rc.abs().max()):.3g}), aligned and "
+                  f"unaligned images max abs err {a_err:.3e} and {u_err:.3e} (tol "
+                  f"{IMAGE_TOL:g}, max |ref| {float(ra.abs().max()):.3g} and "
+                  f"{float(ru.abs().max()):.3g})")
+            ok = ok and max(a_err, u_err) <= IMAGE_TOL and c_err <= c_tol
         if not ok:
             raise SystemExit("ReStyle through the kernels disagrees with impl='ref'")
         del out
+        torch.cuda.empty_cache()
 
         # Editing: three seeded unit directions over the CLI's factor range.
         codes = runs["ProgressiveBackboneEncoder"][2][-1][2]
@@ -321,6 +459,7 @@ def restyle_phase(dev, card, layers, kernel_call):
             directions[name] = d / np.linalg.norm(d)
         editor = FaceEditor(model.decoder, directions=directions)
         n_factors = len(range(*EDIT_FACTORS))
+        zero = -EDIT_FACTORS[0]
         plain = model.decoder.synthesize(codes)
         flrelu_cuda.reset_launches()
         edits = {name: editor.edit(codes, name, factor_range=EDIT_FACTORS)[0]
@@ -332,24 +471,28 @@ def restyle_phase(dev, card, layers, kernel_call):
         if edit_launches != {"filtered_lrelu_fwd": len(layers) * len(directions),
                              "filtered_lrelu_bwd": 0, **NO_FIR}:
             raise SystemExit("expected 14 forward launches per edit call")
-        atol, rtol = BF16_TOL
+        scale = float(plain.abs().max())
         for name, images in edits.items():
-            zero = images[-EDIT_FACTORS[0]]
-            err = (zero - plain).abs()
-            res = cfg.img_resolution
-            one_rounding = bool((err <= atol + rtol * plain.abs()).all())
-            ok = (len(images) == n_factors and all(tuple(im.shape) == (n, res, res, 3)
-                                                   for im in images)
-                  and finite(*images) and float(err.max()) <= EDIT_TOL * float(plain.abs().max()))
+            err = float((images[zero] - plain).abs().max()) / scale
+            # What the check must tell apart: the neighbouring factors' renders
+            # (an off-by-one in the range) and the pair in the other order.
+            faults = {f"factor {f:+d}": float((images[zero + f] - plain).abs().max()) / scale
+                      for f in (-1, 1)}
+            faults["pair swapped"] = float((images[zero].flip(0) - plain).abs().max()) / scale
+            ok = (len(images) == n_factors and all(
+                tuple(im.shape) == (n, cfg.img_resolution, cfg.img_resolution, 3)
+                for im in images) and finite(*images) and err <= RANGE_RENDER_TOL
+                < min(faults.values()))
             print(f"edit {name}: factor-0 renders (batch {n_factors * n}) vs "
-                  f"decoder.synthesize(codes) (batch {n}): max abs err {float(err.max()):.3e}, "
-                  f"max |ref| {float(plain.abs().max()):.3g} (tol {EDIT_TOL:g} of it; within "
-                  f"one bf16 rounding, atol {atol:g} + rtol {rtol:g}·|ref|: {one_rounding}) "
-                  f"{'ok' if ok else 'FAIL'}")
+                  f"decoder.synthesize(codes) (batch {n}): max abs err {err:.4%} of max |ref| "
+                  f"{scale:.3g} (tol {RANGE_RENDER_TOL:.2%}); the same for "
+                  + ", ".join(f"{k} {v:.4%}" for k, v in faults.items())
+                  + f" (each must exceed the tol) {'ok' if ok else 'FAIL'}")
             if not ok:
-                raise SystemExit(f"edit {name}: wrong shapes, non-finite values or factor-0 "
-                                 "renders off the decoder's")
+                raise SystemExit(f"edit {name}: wrong shapes, non-finite values, factor-0 "
+                                 "renders off the decoder's, or a fault within the tolerance")
         del edits, plain
+        torch.cuda.empty_cache()
 
         # Timing, after the drive above as warm-up.
         x6 = torch.cat([faces, runs["ProgressiveBackboneEncoder"][0][None].expand(n, -1, -1, -1)],
@@ -368,40 +511,32 @@ def restyle_phase(dev, card, layers, kernel_call):
                   f"{flops / 1e9:.2f} GFLOP at the fp32 rate), peak memory {peak:.3f} GiB {card}")
         model = models["ProgressiveBackboneEncoder"]
         avg, lat = runs["ProgressiveBackboneEncoder"][:2]
-        loop_s = {}
         for name, kwargs in (("single decode", {}), ("dual decode", {"landmarks_transform": lt})):
+            def loop():
+                run_restyle_iterations(model, faces, avg, lat, n_iters=RESTYLE_ITERS, **kwargs)
+
             reps = 3
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             for _ in range(reps):
-                run_restyle_iterations(model, faces, avg, lat, n_iters=RESTYLE_ITERS, **kwargs)
+                loop()
             torch.cuda.synchronize()
-            loop_s[name] = (time.perf_counter() - t0) / reps
+            loop_s = (time.perf_counter() - t0) / reps
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
             print(f"time restyle e4e {RESTYLE_ITERS} iterations, {name}, batch {n}: "
-                  f"{loop_s[name]:.4f} s per batch, peak memory {peak:.3f} GiB {card}")
-        # Kernel #1's fp32 route on the 14 layers at the decode batches.
-        for batch, name in ((n, "single decode"), (2 * n, "dual decode")):
-            total = bound = 0.0
-            for i, s in enumerate(layers):
-                gen = torch.Generator(device=dev).manual_seed(500 + i)
-                x = torch.randn((batch, s.in_size[1], s.in_size[0], s.out_channels),
-                                generator=gen, device=dev)
-                b = torch.randn((s.out_channels,), generator=gen, device=dev)
-                total += time_ms(lambda: kernel_call(s, x, b), 5)
-                nbytes, up_flops, down_flops = flrelu_work(
-                    tuple(x.shape), (batch, s.out_size[1], s.out_size[0], s.out_channels),
-                    s.up_factor, len(s.up_filter), s.down_filter.shape[0],
-                    s.down_filter.ndim == 2, x.element_size())
-                bound += max(nbytes / HBM_BYTES_PER_S, (up_flops + down_flops) / FP32_FLOPS) * 1e3
-                del x, b
-            share = RESTYLE_ITERS * total / (loop_s[name] * 1e3)
-            print(f"time kernel #1 fp32 route, {len(layers)} layers, batch {batch}: "
-                  f"{total:.4f} ms per decode (bound {bound:.4f} ms: its bytes or its fp32 "
-                  f"FLOPs on the CUDA cores), {RESTYLE_ITERS * total:.4f} ms per {RESTYLE_ITERS}-iteration batch "
-                  f"= {100 * share:.2f} % of the {name} loop {card}")
-        torch.cuda.empty_cache()
+                  f"{loop_s:.4f} s per batch, peak memory {peak:.3f} GiB {card}")
+            print_trace(f"restyle e4e {RESTYLE_ITERS} iterations, {name}, batch {n}",
+                        device_trace(loop, model), card)
+        # Kernel #1 at the batches of the path, each image at either end of a
+        # batch held against the plain version: the fp32 route at the decodes'
+        # batches, each layer's own dtype at the edit call's.
+        max_err = 0.0
+        for batch, fp32, what in ((n, True, "fp32 route, single decode"),
+                                  (2 * n, True, "fp32 route, dual decode"),
+                                  (n_factors * n, False, "edit call")):
+            max_err = max(max_err, layer_rows(dev, card, layers, layer_call, kernel_call, batch,
+                                              fp32, 700 + 20 * batch, what)[2])
         reps = 5
         torch.cuda.reset_peak_memory_stats()
         edit_ms = time_ms(lambda: editor.edit(codes, "age", factor_range=EDIT_FACTORS), reps,
@@ -410,6 +545,10 @@ def restyle_phase(dev, card, layers, kernel_call):
         print(f"time edit call, {n_factors} factors x batch {n} = {n_factors * n} images, bf16 "
               f"route: {edit_ms:.4f} ms per call, {n_factors * n * 1e3 / edit_ms:.4f} images/s, "
               f"peak memory {peak:.3f} GiB {card}")
+        print_trace(f"edit call, {n_factors * n} images",
+                    device_trace(lambda: editor.edit(codes, "age", factor_range=EDIT_FACTORS)),
+                    card)
+    return max_err
 
 
 def main() -> int:
@@ -900,7 +1039,7 @@ def main() -> int:
     # 10. ReStyle inversion and InterFaceGAN editing at full width.
     del pti, lpips, G, ws, targets, pivot
     torch.cuda.empty_cache()
-    restyle_phase(dev, card, layers, kernel_call)
+    max_err = max(max_err, restyle_phase(dev, card, layers, layer_call, kernel_call))
     torch.cuda.empty_cache()
 
     def fir_entry(name, replaces):

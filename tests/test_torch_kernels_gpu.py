@@ -529,11 +529,12 @@ def test_restyle_through_the_kernels_matches_plain(cuda_device):
 def test_face_editor_range_matches_per_factor_renders(cuda_device):
     """`FaceEditor` on the card: a factor range is one synthesis (one launch
     per filtered layer, bf16 route on the top layers), and each factor's
-    images match that factor's own render at batch 2 within 2.2 % of max
-    |ref|: the styles are normalised over the whole batch (reference
-    modulated_conv2d), so the two batches round their bf16 inputs apart
-    (the generator tests' bf16 image tolerance)."""
+    images match that factor's own render at batch 2 within
+    `RANGE_RENDER_TOL` of max |ref| (the styles are normalised over the whole
+    batch, so the two batches round their bf16 inputs apart), while the
+    neighbouring factors' images and the pair swapped lie beyond it."""
     from stylegan3_editing_tpu_torch.editing import FaceEditor
+    from stylegan3_editing_tpu_torch.editing.interfacegan import RANGE_RENDER_TOL
 
     cfg = sg3_r_config(64, **SLIM_R)
     n_layers = sum(s.up_filter is not None for s in build_synthesis_layout(cfg).layers)
@@ -547,8 +548,14 @@ def test_face_editor_range_matches_per_factor_renders(cuda_device):
         images, latents = editor.edit(ws, "d", factor_range=(-2, 3))
         torch.cuda.synchronize()
         assert flrelu_cuda.launches["filtered_lrelu_fwd"] == n_layers
-        for f, img, lat in zip(range(-2, 3), images, latents):
+        for i, (f, img, lat) in enumerate(zip(range(-2, 3), images, latents)):
             single, single_lat = editor.edit(ws, "d", factor=float(f))
             assert torch.equal(lat, single_lat)
-            torch.testing.assert_close(img, single, rtol=0,
-                                       atol=2.2e-2 * float(single.abs().max()), msg=f"f={f}")
+            tol = RANGE_RENDER_TOL * float(single.abs().max())
+            torch.testing.assert_close(img, single, rtol=0, atol=tol, msg=f"f={f}")
+            faults = {f"factor {f + k}": images[i + k] for k in (-1, 1)
+                      if 0 <= i + k < len(images)}
+            faults["pair swapped"] = img.flip(0)
+            for name, wrong in faults.items():
+                err = float((wrong - single).abs().max())
+                assert err > tol, f"f={f}: {name} reads {err:.3e}, within the tolerance {tol:.3e}"
