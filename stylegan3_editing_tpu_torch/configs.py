@@ -1,11 +1,9 @@
-"""Central path + dataset registries.
+"""Path registry of the released weights the port reads.
 
-A copy of the JAX package's `configs.py`.
+A slice of the JAX package's `configs.py`: the entries a ported module uses.
 
-Parity: reference configs/paths_config.py (model/dataset path registry) and
-configs/data_configs.py (dataset_type → roots + transforms). All paths are
-environment-overridable via SG3TPU_DATA / SG3TPU_MODELS so the framework runs
-anywhere without editing source.
+Parity: reference configs/paths_config.py. Paths are overridable through
+SG3TPU_MODELS so the framework runs anywhere without editing source.
 """
 
 from __future__ import annotations
@@ -13,71 +11,9 @@ from __future__ import annotations
 import os
 from pathlib import Path
 
-_DATA = Path(os.environ.get("SG3TPU_DATA", "/data"))
 _MODELS = Path(os.environ.get("SG3TPU_MODELS", "/pretrained_models"))
 
-dataset_paths = {
-    "ffhq": _DATA / "ffhq" / "images",
-    "ffhq_unaligned": _DATA / "ffhq" / "unaligned",
-    "celeba_test": _DATA / "celeba" / "test",
-    "animalfaces_train": _DATA / "animalfaces" / "train",
-    "animalfaces_test": _DATA / "animalfaces" / "test",
-    "flowers_train": _DATA / "flowers" / "train",
-    "flowers_test": _DATA / "flowers" / "test",
-    "vggface_train": _DATA / "vggface" / "train",
-    "vggface_test": _DATA / "vggface" / "test",
-    "cifar_train": _DATA / "cifar" / "train",
-    "cifar_test": _DATA / "cifar" / "test",
-    "mini_train": _DATA / "mini_imagenet" / "train",
-    "mini_test": _DATA / "mini_imagenet" / "test",
-}
-
 model_paths = {
-    # Generator checkpoints (torch .pt state dicts or converted .npz).
-    "stylegan3_ffhq_pt": _MODELS / "sg3-r-ffhq-1024.pt",
-    "stylegan3_ffhq_unaligned_pt": _MODELS / "sg3-r-ffhqu-1024.pt",
-    "stylegan3_landscapes": _MODELS / "sg3-t-landscapes-256.pt",
-    # Loss / metric backbones.
-    "ir_se50": _MODELS / "model_ir_se50.pth",
-    "curricular_face": _MODELS / "CurricularFace_Backbone.pth",
-    "moco": _MODELS / "moco_v2_800ep_pretrain.pt",
-    "lpips_alex": _MODELS / "lpips_alex.pth",
-    "lpips_vgg": _MODELS / "lpips_vgg.pth",
-    "alexnet": _MODELS / "alexnet_torchvision.pth",
-    "vgg16": _MODELS / "vgg16_torchvision.pth",
-    "clip_vit_b32": _MODELS / "clip_vit_b32.pt",
-    "clip_bpe_vocab": _MODELS / "bpe_simple_vocab_16e6.txt.gz",
-    # Face alignment / attribute models (video + boundary pipelines).
-    "shape_predictor": _MODELS / "shape_predictor_68_face_landmarks.dat",
-    "mtcnn_pnet": _MODELS / "mtcnn" / "pnet.npy",
-    "mtcnn_rnet": _MODELS / "mtcnn" / "rnet.npy",
-    "mtcnn_onet": _MODELS / "mtcnn" / "onet.npy",
-    "age_estimator": _MODELS / "dex_age_classifier.pth",
-    "pose_estimator": _MODELS / "hopenet_robust_alpha1.pkl",
-    "attribute_classifier": _MODELS / "attributes_classifier.pth",
     # Editing assets.
-    "styleclip_delta_i_c": _MODELS / "styleclip" / "delta_i_c.npy",
-    "styleclip_s_stats": _MODELS / "styleclip" / "s_stats",
     "interfacegan_boundaries": _MODELS / "interfacegan",
 }
-
-
-def get_dataset_registry():
-    """dataset_type → {train/test source/target roots} (EncodeTransforms)."""
-    pairs = {
-        "ffhq_encode": ("ffhq", "celeba_test"),
-        "animalfaces_encode": ("animalfaces_train", "animalfaces_test"),
-        "flowers_encode": ("flowers_train", "flowers_test"),
-        "vggface_encode": ("vggface_train", "vggface_test"),
-        "cifar_encode": ("cifar_train", "cifar_test"),
-        "mini_encode": ("mini_train", "mini_test"),
-    }
-    return {
-        name: {
-            "train_source_root": dataset_paths[train],
-            "train_target_root": dataset_paths[train],
-            "test_source_root": dataset_paths[test],
-            "test_target_root": dataset_paths[test],
-        }
-        for name, (train, test) in pairs.items()
-    }

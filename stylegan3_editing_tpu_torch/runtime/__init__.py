@@ -1,5 +1,5 @@
 """Checkpoint I/O of the port (numpy format, no orbax)."""
 
-from .checkpoint import load_pytree, opts_to_dict, save_pytree
+from .checkpoint import load_pytree, save_pytree
 
-__all__ = ["load_pytree", "save_pytree", "opts_to_dict"]
+__all__ = ["load_pytree", "save_pytree"]

@@ -13,7 +13,6 @@ and this module's `save_pytree` writes its tree again in the numpy format.
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import shutil
 from pathlib import Path
@@ -95,9 +94,3 @@ def load_pytree(path) -> Tuple[Any, Optional[dict]]:
         with open(sidecar) as f:
             meta = json.load(f)
     return tree, meta
-
-
-def opts_to_dict(opts) -> dict:
-    if dataclasses.is_dataclass(opts):
-        return dataclasses.asdict(opts)
-    return dict(opts)
