@@ -31,7 +31,8 @@ def load_encoder(checkpoint_path, generator_variables: Optional[Mapping] = None,
     sidecar's ``opts`` (and ``is_e4e``) rebuild the options.
 
     ``generator_variables`` (``{params, buffers, ema}`` of a generator)
-    swaps in another decoder, such as a PTI-tuned one. The model is built on
+    swaps in another decoder, such as a PTI-tuned one, or supplies it where
+    the checkpoint holds the encoder alone (`scripts.convert_checkpoint`). The model is built on
     the CUDA card unless ``device="cpu"``.
     """
     tree, meta = load_pytree(checkpoint_path)
@@ -56,7 +57,6 @@ def load_encoder(checkpoint_path, generator_variables: Optional[Mapping] = None,
     if generator_variables is not None:
         for col in ("params", "buffers", "ema"):
             if col in generator_variables:
-                variables[col] = dict(variables[col])
-                variables[col]["decoder"] = generator_variables[col]
+                variables[col] = {**variables.get(col, {}), "decoder": generator_variables[col]}
     load_jax_variables(model, variables)
     return model, opts
