@@ -6,6 +6,8 @@ so `models.sg3.load_jax_variables` fills them from a flax variable tree.
 
 from .alexnet import AlexNetFeatures, convert_alexnet_state
 from .irse import IRSEBackbone, IRSEBody, convert_irse_state, get_blocks
+from .resnet import BasicBlock, ResNet34Body, convert_resnet34_body_state
 
 __all__ = ["AlexNetFeatures", "convert_alexnet_state", "IRSEBackbone", "IRSEBody",
-           "convert_irse_state", "get_blocks"]
+           "convert_irse_state", "get_blocks", "BasicBlock", "ResNet34Body",
+           "convert_resnet34_body_state"]

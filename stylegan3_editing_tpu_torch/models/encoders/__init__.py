@@ -1,6 +1,7 @@
-"""ReStyle pSp / e4e inversion encoders (NHWC) on the IR(-SE) trunk."""
+"""ReStyle pSp / e4e inversion encoders (NHWC) on the IR(-SE) and ResNet-34 trunks."""
 
-from .backbones import INFERENCE_STAGE, BackboneEncoder, ProgressiveBackboneEncoder
+from .backbones import (INFERENCE_STAGE, BackboneEncoder, ProgressiveBackboneEncoder,
+                        ResNetBackboneEncoder, ResNetProgressiveBackboneEncoder)
 from .convert import convert_restyle_encoder_state, encoder_state_from_model_checkpoint
 from .map2style import GradualStyleBlock
 from .restyle import RestyleNet, get_average_image, run_restyle_iterations
@@ -12,6 +13,8 @@ __all__ = [
     "GradualStyleBlock",
     "BackboneEncoder",
     "ProgressiveBackboneEncoder",
+    "ResNetBackboneEncoder",
+    "ResNetProgressiveBackboneEncoder",
     "RestyleNet",
     "get_average_image",
     "run_restyle_iterations",

@@ -1,12 +1,12 @@
-"""Pretrained ReStyle encoder checkpoint converter (IR and IR-SE trunks).
+"""Pretrained ReStyle encoder checkpoint converter (IR, IR-SE and ResNet-34 trunks).
 
 Counterpart of the JAX package's `models/encoders/convert.py`: maps the
 reference's released encoder state dicts, pSp/e4e over an IR(-SE) trunk
 (restyle_psp_encoders.BackboneEncoder, restyle_e4e_encoders.
-ProgressiveBackboneEncoder), onto the tree of `backbones.py`, so a reference
-ReStyle ``.pt`` loads with ``torch.load(path, weights_only=True)`` and
-`load_jax_variables`. Plain and progressive encoders share one tree. The
-ResNet-34 trunks wait for `models/backbones/resnet.py` (ROADMAP Queue 1 #6).
+ProgressiveBackboneEncoder) or over the ResNet-34 trunk (ResNetBackboneEncoder,
+ResNetProgressiveBackboneEncoder), onto the tree of `backbones.py`, so a
+reference ReStyle ``.pt`` loads with ``torch.load(path, weights_only=True)``
+and `load_jax_variables`. Plain and progressive encoders share one tree.
 """
 
 from __future__ import annotations
@@ -15,18 +15,13 @@ from typing import Mapping, Tuple
 
 import numpy as np
 
-from ..backbones.common import conv_w, put
+from ..backbones.common import bn_from_torch, conv_w, put
 from ..backbones.irse import convert_irse_body_state
+from ..backbones.resnet import RESNET34_LAYERS, convert_resnet34_body_state
+from ..sg3.convert import as_numpy
 
 # body block-count → IR depth (helpers.get_blocks: 3+4+14+3 etc.).
 _IR_DEPTH_BY_BLOCKS = {24: 50, 49: 100, 50: 152}
-
-
-def _as_numpy(v) -> np.ndarray:
-    """A state-dict value (numpy, or a torch tensor on any device) → numpy."""
-    if hasattr(v, "detach"):
-        v = v.detach().cpu().numpy()
-    return np.asarray(v)
 
 
 def _style_count(state: Mapping[str, np.ndarray]) -> int:
@@ -57,10 +52,10 @@ def convert_restyle_encoder_state(state: Mapping) -> Tuple[dict, dict]:
 
     IR depth, IR vs IR-SE and the style count are read off the keys.
     Returns ``{'params', 'batch_stats'}`` matching `BackboneEncoder` /
-    `ProgressiveBackboneEncoder`, and ``{trunk, num_layers, mode, n_styles}``.
-    A ResNet-34 state dict raises `NotImplementedError`.
+    `ProgressiveBackboneEncoder` (or their ResNet-34 twins), and
+    ``{trunk, n_styles[, num_layers, mode]}``.
     """
-    state = {k: _as_numpy(v) for k, v in state.items()}
+    state = {k: as_numpy(v) for k, v in state.items()}
     if "input_layer.0.weight" in state:
         n_body = len({int(k.split(".")[1]) for k in state if k.startswith("body.")})
         num_layers = _IR_DEPTH_BY_BLOCKS.get(n_body)
@@ -69,9 +64,23 @@ def convert_restyle_encoder_state(state: Mapping) -> Tuple[dict, dict]:
         trunk_p, trunk_s = convert_irse_body_state(state, num_layers)
         info = {"trunk": "irse", "num_layers": num_layers, "mode": mode}
     elif "conv1.weight" in state:
-        raise NotImplementedError(
-            "a ResNet-34 ReStyle encoder: its trunk (models/backbones/resnet.py) is not "
-            "ported yet (ROADMAP Queue 1 #6, the ResNet-34 trunks)")
+        trunk_p, trunk_s = {}, {}
+        put(trunk_p, "conv1/kernel", conv_w(state["conv1.weight"]))
+        bn_from_torch(trunk_p, trunk_s, "bn1", state, "bn1")
+        put(trunk_p, "relu/alpha", state["relu.weight"])
+        # The reference flattens layer1-4 into one Sequential (body.N); name
+        # each block as torchvision does (layerN.M) for the body converter.
+        body_state = {}
+        flat = 0
+        for stage_i, (blocks, _) in enumerate(RESNET34_LAYERS, start=1):
+            for block_i in range(blocks):
+                pfx = f"body.{flat}."
+                body_state.update({f"layer{stage_i}.{block_i}.{k[len(pfx):]}": v
+                                   for k, v in state.items() if k.startswith(pfx)})
+                flat += 1
+        body = convert_resnet34_body_state(body_state)
+        trunk_p["body"], trunk_s["body"] = body["params"], body["batch_stats"]
+        info = {"trunk": "resnet34"}
     else:
         raise ValueError("state dict is neither an IR(-SE) nor a ResNet "
                          "ReStyle encoder (no input_layer.0 / conv1 keys)")

@@ -22,14 +22,16 @@ from ...device import DeviceLike, resolve_device
 from ...ops.image import adaptive_avg_pool2d
 from ..sg3.config import SG3Config
 from ..sg3.generator import Generator
-from .backbones import INFERENCE_STAGE, BackboneEncoder, ProgressiveBackboneEncoder
+from .backbones import (INFERENCE_STAGE, BackboneEncoder, ProgressiveBackboneEncoder,
+                        ResNetBackboneEncoder, ResNetProgressiveBackboneEncoder)
 
 ENCODER_TYPES = {
     "BackboneEncoder": BackboneEncoder,
     "ProgressiveBackboneEncoder": ProgressiveBackboneEncoder,
+    "ResNetBackboneEncoder": ResNetBackboneEncoder,
+    "ResNetProgressiveBackboneEncoder": ResNetProgressiveBackboneEncoder,
 }
-_PROGRESSIVE = {"ProgressiveBackboneEncoder"}
-_RESNET = {"ResNetBackboneEncoder", "ResNetProgressiveBackboneEncoder"}
+_PROGRESSIVE = {"ProgressiveBackboneEncoder", "ResNetProgressiveBackboneEncoder"}
 
 
 class RestyleNet(nn.Module):
@@ -46,10 +48,6 @@ class RestyleNet(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
-        if encoder_type in _RESNET:
-            raise NotImplementedError(
-                f"{encoder_type} needs the ResNet-34 trunk (models/backbones/resnet.py), "
-                "not ported yet (ROADMAP Queue 1 #6)")
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.decoder_cfg, self.encoder_type = decoder_cfg, encoder_type

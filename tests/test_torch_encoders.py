@@ -21,9 +21,9 @@ in PyTorch, about 1e-7 relative a sum):
   max |ref|, the generator tests' 1e-4 image tolerance on top of the
   codes' own error.
 RestyleNet runs its encoders on the 8-layer trunk in both packages (each
-package's encoder class with ``num_layers=8``; the JAX test
-`test_encoders.py` runs IR-SE-50 at its depth). The IR-SE-50 tree itself
-is checked key by key through `convert_restyle_encoder_state`.
+package's encoder class with ``num_layers=8``; `test_torch_irse50.py` holds
+both encoders at IR-SE-50's full depth). The IR-SE-50 tree itself is
+checked key by key through `convert_restyle_encoder_state`.
 """
 
 import functools
@@ -392,11 +392,6 @@ def test_restyle_psp_encodes_without_stages():
         assert torch.equal(codes, model.encoder(x) + model.decoder.mapping.w_avg)
 
 
-def test_restyle_refuses_the_resnet_trunks():
-    with pytest.raises(NotImplementedError, match="resnet"):
-        RestyleNet(SG3Config(**TINY), "ResNetBackboneEncoder", device="cpu")
-
-
 # ----------------------------------------------------------------- converter
 
 def irse50_reference_state(n_styles, seed=0):
@@ -471,9 +466,3 @@ def test_convert_restyle_encoder_state_matches_jax():
     assert torch.equal(m.trunk.body_23.se.fc2.kernel,
                        torch.from_numpy(state["body.23.res_layer.5.fc2.weight"]
                                         .transpose(2, 3, 1, 0)))
-
-
-def test_convert_refuses_resnet_encoders():
-    with pytest.raises(NotImplementedError, match="ResNet-34"):
-        convert_restyle_encoder_state({"conv1.weight": np.zeros((64, 6, 7, 7)),
-                                       "styles.0.linear.weight": np.zeros((512, 512))})
