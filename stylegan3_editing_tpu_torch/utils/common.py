@@ -2,14 +2,15 @@
 
 Counterpart of the JAX package's `utils/common.py` (reference
 utils/common.py): `make_transform` (rotation + translation 3×3),
-`get_identity_transform` (inverted identity), `generate_random_transform`
-and `tensor2im` (NHWC). PIL is imported inside `tensor2im` only. The video
-writer `generate_mp4` waits for the video slice.
+`get_identity_transform` (inverted identity), `generate_random_transform`,
+`tensor2im` (NHWC) and `generate_mp4`. PIL is imported inside `tensor2im`
+and imageio inside `generate_mp4` only.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from pathlib import Path
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -54,3 +55,24 @@ def tensor2im(var):
         arr = arr[0]
     arr = np.clip((arr + 1) / 2, 0, 1) * 255
     return Image.fromarray(arr.astype("uint8"))
+
+
+def generate_mp4(out_name, images: Sequence, kwargs: dict) -> None:
+    """Write a list of PIL or numpy images to ``<out_name>.mp4``.
+
+    Without an ffmpeg backend for imageio (``imageio[ffmpeg]`` not
+    installed) the frames go to ``<out_name>_frames/`` as a PNG sequence:
+    the same content, to be assembled elsewhere."""
+    import imageio
+
+    try:
+        writer = imageio.get_writer(str(out_name) + ".mp4", **kwargs)
+    except (ValueError, ImportError):
+        frame_dir = Path(str(out_name) + "_frames")
+        frame_dir.mkdir(parents=True, exist_ok=True)
+        for i, image in enumerate(images):
+            imageio.imwrite(frame_dir / f"{i:06d}.png", np.array(image))
+        return
+    for image in images:
+        writer.append_data(np.array(image))
+    writer.close()

@@ -361,3 +361,27 @@ def test_inference_modules_import_without_jax_pillow_sklearn_or_orbax():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_checkpoint_pti_and_fov_modules_import_without_jax_pillow_or_imageio():
+    """The checkpoint readers, the two CLIs of reference checkpoints, the
+    ResNet encoders and the interpolation and FOV helpers import with
+    Pillow, imageio, scikit-learn and orbax unavailable (the card machine has
+    none of them) and leave JAX unloaded."""
+    code = ("import sys, json\n"
+            "for name in ('PIL', 'imageio', 'sklearn', 'orbax', 'jax', 'flax'):\n"
+            "    sys.modules[name] = None\n"
+            "import stylegan3_editing_tpu_torch.models.sg3.persistence, "
+            "stylegan3_editing_tpu_torch.models.sg3.convert, "
+            "stylegan3_editing_tpu_torch.models.backbones.resnet, "
+            "stylegan3_editing_tpu_torch.scripts.convert_checkpoint, "
+            "stylegan3_editing_tpu_torch.scripts.run_pti_images, "
+            "stylegan3_editing_tpu_torch.utils.gen_utils, "
+            "stylegan3_editing_tpu_torch.utils.fov_expansion\n"
+            "print(json.dumps(sorted(m for m in sys.modules if sys.modules[m] is not None "
+            "and m.split('.')[0] in ('jax', 'flax', 'stylegan3_editing_tpu', 'PIL', "
+            "'imageio', 'sklearn', 'orbax'))))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
