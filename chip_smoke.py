@@ -73,7 +73,30 @@ Phases (any failure exits non-zero before the result lines):
    and device time, the encoder's and decoder's host and device time);
    then kernel #1 at each batch the path gives it (fp32 route at 2 and 4,
    each layer's dtype at 22): images 0 and batch - 1 against the plain
-   version, and its time alone beside its bound.
+   version, and its time alone beside its bound;
+11. reference checkpoints on the card, no JAX: (a) a seeded SG3-R 1024
+   generator written in the reference's naming as a ``.pt`` state dict and
+   as an official-format pickle (nested `persistent_class` objects whose
+   embedded source raises if it is ever run), each converted by
+   `scripts.convert_checkpoint` (``--kind auto``) and loaded into a fresh
+   `Generator`: every leaf equal, the fp32 image through the kernels equal
+   to the source's to 0, the conversion's seconds; (b)
+   `scripts.run_pti_images.tune` from the pickle's ``.npz`` (phase 7's
+   targets and pivots): per image on 2 images and shared at batch 4, 5 steps
+   each, 14 forward and 14 backward launches per image-pass, finite losses,
+   and a tree written by the CLI's writer renders its image within
+   `IMAGE_TOL`; s per image-step, s/step, peak memory; (c) ReStyle pSp and
+   e4e on the ResNet-34 trunk from a reference-format state dict (seeded,
+   non-trivial batch norms, 16 styles) through `convert_checkpoint
+   --kind encoder` and `load_encoder` with the (a) decoder: the loop at
+   batch 2 with the dual decode through the kernels against ``impl="ref"``
+   (`IMAGE_TOL`, `RESTYLE_CODES_TOL`), 14 launches per decode call; the
+   encoders' ms beside phase 10's IR-SE-50, the loop's s per batch, peak
+   memory; (d) `Expander` on one face, 256 pixels each side: 9 views in one
+   synthesize (bf16 route), the 1536² canvas, 14 launches, the centre
+   against a batch-1 render within the generator tests' bf16 image
+   tolerance, which the unshifted left view must exceed; ms per expanded
+   image and peak memory.
 
 PyTorch's TF32 flags stay at their defaults: matmuls run in fp32 by
 default, and the port holds its cuDNN convs to fp32 itself (`device.conv2d`;
@@ -356,7 +379,8 @@ def print_trace(what, t, card):
 
 def restyle_phase(dev, card, layers, layer_call, kernel_call):
     """Phase 10: ReStyle inversion and InterFaceGAN editing at full width.
-    Returns the largest error of kernel #1 against its plain version."""
+    Returns the largest error of kernel #1 against its plain version, and
+    each IR-SE-50 encoder's times in ms at batch 2 (one per turn)."""
     from stylegan3_editing_tpu_torch.editing import FaceEditor
     from stylegan3_editing_tpu_torch.editing.interfacegan import RANGE_RENDER_TOL
     from stylegan3_editing_tpu_torch.models.encoders import (RestyleNet, get_average_image,
@@ -498,12 +522,14 @@ def restyle_phase(dev, card, layers, layer_call, kernel_call):
         x6 = torch.cat([faces, runs["ProgressiveBackboneEncoder"][0][None].expand(n, -1, -1, -1)],
                        dim=-1)
         # In turns (e4e, pSp, e4e, pSp): the host issues some hundred small launches a call.
+        encoder_ms = {}
         for kind in ("ProgressiveBackboneEncoder", "BackboneEncoder") * 2:
             model = models[kind]
             nbytes, flops = encoder_work(model.encoder, x6)
             bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
             torch.cuda.reset_peak_memory_stats()
             enc_ms = time_ms(lambda: model.encoder(x6), 10)
+            encoder_ms.setdefault(kind, []).append(enc_ms)
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
             print(f"time encoder {kind} (IR-SE-50, 256², 6 channels, {cfg.num_ws} styles), "
                   f"batch {n}: {enc_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
@@ -548,7 +574,398 @@ def restyle_phase(dev, card, layers, layer_call, kernel_call):
         print_trace(f"edit call, {n_factors * n} images",
                     device_trace(lambda: editor.edit(codes, "age", factor_range=EDIT_FACTORS)),
                     card)
-    return max_err
+    return max_err, encoder_ms
+
+
+class _Persistent:
+    """Pickles as a reference `persistent_class` object does: a call of
+    `torch_utils.persistence._reconstruct_persistent_obj(meta)`."""
+
+    def __init__(self, meta):
+        self.meta = meta
+
+    def __reduce__(self):
+        return sys.modules["torch_utils.persistence"]._reconstruct_persistent_obj, (self.meta,)
+
+
+REFERENCE_BUFFERS = {"w_avg", "freqs", "phases", "transform", "magnitude_ema", "up_filter",
+                     "down_filter"}
+
+
+def _persistent(name, state, init_kwargs=None):
+    """A nested `persistent_class` object for a flat state dict, one per
+    module, whose embedded source raises if it is ever run."""
+    params, buffers, children = {}, {}, {}
+    for key, value in state.items():
+        head, _, rest = key.partition(".")
+        if rest:
+            children.setdefault(head, {})[rest] = value
+        else:
+            (buffers if head in REFERENCE_BUFFERS else params)[head] = value
+    return _Persistent(dict(
+        type="class", version=6, class_name=name,
+        module_src="raise RuntimeError('the embedded source of a pickle was run')",
+        state={"_parameters": params, "_buffers": buffers,
+               "_modules": {k: _persistent(k, v) for k, v in children.items()},
+               "_init_kwargs": init_kwargs or {}}))
+
+
+def write_reference_pickle(path, state, init_kwargs) -> None:
+    """An official-format SG3 pickle (``G``, ``G_ema``) of ``state``. Stand-ins
+    for the reference's `torch_utils.persistence` live in `sys.modules` only
+    while it is written; its reconstruct hook raises if a reader calls it."""
+    import pickle
+    import types
+
+    tu, pe = types.ModuleType("torch_utils"), types.ModuleType("torch_utils.persistence")
+
+    def _reconstruct_persistent_obj(meta):
+        raise AssertionError("a reader ran the reference's reconstruct hook")
+
+    _reconstruct_persistent_obj.__module__ = "torch_utils.persistence"
+    _reconstruct_persistent_obj.__qualname__ = "_reconstruct_persistent_obj"
+    pe._reconstruct_persistent_obj, tu.persistence = _reconstruct_persistent_obj, pe
+    saved = {k: sys.modules.get(k) for k in ("torch_utils", "torch_utils.persistence")}
+    sys.modules.update({"torch_utils": tu, "torch_utils.persistence": pe})
+    try:
+        g = _persistent("Generator", state, init_kwargs)
+        with open(path, "wb") as f:
+            pickle.dump({"G": g, "G_ema": g, "training_set_kwargs": None}, f)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+
+
+def reference_state(G) -> dict:
+    """A port generator's state in the reference's naming: the same names,
+    conv weights HWIO → OIHW, and the stored user transform (identity)."""
+    state = {}
+    for k, v in G.state_dict().items():
+        v = v.detach().cpu()
+        state[k] = v.permute(3, 2, 0, 1).contiguous() if k.endswith(".weight") and v.ndim == 4 \
+            else v.clone()
+    state["synthesis.input.transform"] = torch.eye(3)
+    return state
+
+
+def resnet_reference_state(n_styles: int, seed: int, input_nc: int = 6) -> dict:
+    """A ReStyle ResNet-34 encoder's state dict in the reference's naming
+    (``conv1``, ``bn1``, the PReLU ``relu``, layer1-4 flattened into
+    ``body.N``, ``styles.J``), from seeded weights: convs normal with std
+    1/sqrt(fan_in), batch norms with non-trivial statistics."""
+    from stylegan3_editing_tpu_torch.models.backbones.resnet import RESNET34_LAYERS
+
+    gen = torch.Generator().manual_seed(seed)
+    state = {}
+
+    def arr(*shape):
+        z = torch.randn(shape, generator=gen)
+        return z / math.sqrt(math.prod(shape[1:])) if len(shape) == 4 else z
+
+    def bn(prefix, c):
+        state[f"{prefix}.weight"] = 1 + 0.1 * arr(c)
+        state[f"{prefix}.bias"] = 0.1 * arr(c)
+        state[f"{prefix}.running_mean"] = 0.1 * arr(c)
+        state[f"{prefix}.running_var"] = 0.5 + arr(c).abs()
+        state[f"{prefix}.num_batches_tracked"] = torch.tensor(3)
+
+    state["conv1.weight"] = arr(64, input_nc, 7, 7)
+    bn("bn1", 64)
+    state["relu.weight"] = 0.25 + 0.05 * arr(64)
+    flat, in_c = 0, 64
+    for stage_i, (blocks, c) in enumerate(RESNET34_LAYERS, start=1):
+        for block_i in range(blocks):
+            p = f"body.{flat}"
+            state[f"{p}.conv1.weight"] = arr(c, in_c, 3, 3)
+            bn(f"{p}.bn1", c)
+            state[f"{p}.conv2.weight"] = arr(c, c, 3, 3)
+            bn(f"{p}.bn2", c)
+            if block_i == 0 and stage_i > 1:
+                state[f"{p}.downsample.0.weight"] = arr(c, in_c, 1, 1)
+                bn(f"{p}.downsample.1", c)
+            flat, in_c = flat + 1, c
+    for j in range(n_styles):
+        for k in range(4):
+            state[f"styles.{j}.convs.{2 * k}.weight"] = arr(512, 512, 3, 3)
+            state[f"styles.{j}.convs.{2 * k}.bias"] = 0.1 * arr(512)
+        state[f"styles.{j}.linear.weight"] = arr(512, 512)
+        state[f"styles.{j}.linear.bias"] = 0.1 * arr(512)
+    return state
+
+
+def checkpoint_phase(dev, card, layers, irse_ms) -> None:
+    """Phase 11: a reference user's checkpoints on the card, with no JAX:
+    (a) a seeded SG3-R 1024 generator written as a reference ``.pt`` and as
+    an official-format pickle, converted by `convert_checkpoint`; (b)
+    `run_pti_images.tune` from the pickle's ``.npz``, both modes; (c)
+    ResNet-34 ReStyle pSp and e4e from a reference-format state dict through
+    the converter and `load_encoder`; (d) FOV expansion of one face."""
+    import shutil
+    import tempfile
+
+    from stylegan3_editing_tpu_torch.criteria import LPIPS
+    from stylegan3_editing_tpu_torch.editing.interfacegan import RANGE_RENDER_TOL
+    from stylegan3_editing_tpu_torch.inversion import PTI, PTIOptions
+    from stylegan3_editing_tpu_torch.models.encoders import (get_average_image,
+                                                             run_restyle_iterations)
+    from stylegan3_editing_tpu_torch.models.sg3 import Generator, load_jax_variables, sg3_r_config
+    from stylegan3_editing_tpu_torch.models.sg3.convert import npz_to_variables
+    from stylegan3_editing_tpu_torch.ops import flrelu_cuda
+    from stylegan3_editing_tpu_torch.scripts import convert_checkpoint, run_pti_images
+    from stylegan3_editing_tpu_torch.utils.common import make_transform
+    from stylegan3_editing_tpu_torch.utils.fov_expansion import Expander
+    from stylegan3_editing_tpu_torch.utils.inference_utils import load_encoder
+
+    cfg = sg3_r_config(1024)
+    res, n_layers = cfg.img_resolution, len(layers)
+
+    def finite(*ts):
+        return all(bool(torch.isfinite(t).all()) for t in ts)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # (a) The source generator: seeded weights, non-trivial EMAs, in the
+        # reference's naming as a .pt state dict and as a pickle.
+        src = Generator(cfg, device=dev, generator=torch.Generator().manual_seed(110))
+        gen = torch.Generator().manual_seed(111)
+        with torch.no_grad():
+            for name, buf in src.named_buffers():
+                if name.endswith("magnitude_ema"):
+                    buf.copy_(0.5 + torch.rand(buf.shape, generator=gen))
+            z = torch.randn((256, cfg.z_dim), generator=gen).to(dev)
+            src.mapping.w_avg.copy_(src.map(z)[:, 0].mean(0))
+        state = reference_state(src)
+        torch.save(state, tmp / "G.pt")
+        write_reference_pickle(tmp / "G.pkl", state, dict(
+            z_dim=cfg.z_dim, c_dim=0, w_dim=cfg.w_dim, img_resolution=cfg.img_resolution,
+            img_channels=3, channel_base=cfg.channel_base, channel_max=cfg.channel_max,
+            num_layers=cfg.num_layers, conv_kernel=cfg.conv_kernel,
+            use_radial_filters=cfg.use_radial_filters,
+            magnitude_ema_beta=cfg.magnitude_ema_beta))
+        del state
+        z = torch.randn((1, cfg.z_dim), generator=torch.Generator().manual_seed(112)).to(dev)
+        with torch.inference_mode():
+            want = src(z, force_fp32=True)
+        src_state = {k: v.clone() for k, v in src.state_dict().items()}
+        for name in ("G.pt", "G.pkl"):
+            t0 = time.perf_counter()
+            meta = convert_checkpoint.convert(str(tmp / name), str(tmp / name.replace(".", "_")))
+            secs = time.perf_counter() - t0
+            G = Generator(cfg, device=dev, generator=torch.Generator().manual_seed(113))
+            load_jax_variables(G, npz_to_variables(tmp / f"{name.replace('.', '_')}.npz"))
+            leaves = G.state_dict()
+            same = sorted(leaves) == sorted(src_state) and all(
+                torch.equal(leaves[k], v) for k, v in src_state.items())
+            with torch.inference_mode():
+                err = float((G(z, force_fp32=True) - want).abs().max())
+            ok = same and err == 0 and meta["transform"] == torch.eye(3).tolist()
+            print(f"checkpoint {name}: convert_checkpoint --kind auto -> {meta['kind']} in "
+                  f"{secs:.3f} s; {len(leaves)} leaves equal to the source {same}; fp32 image "
+                  f"batch 1 through the kernels vs the source generator's: max abs err "
+                  f"{err:.3e} (tol 0) {'ok' if ok else 'FAIL'} {card}")
+            if not ok:
+                raise SystemExit(f"the generator converted from {name} is not the source")
+            del G, leaves
+        del src, src_state, want
+        torch.cuda.empty_cache()
+
+        # (b) run_pti_images' tuning from the pickle's .npz, as phase 7 sets it up.
+        npz = tmp / "G_pkl.npz"
+        base = npz_to_variables(npz)
+        G = run_pti_images.load_generator(str(npz), cfg, dev)
+        with torch.no_grad():
+            ws = G.map(torch.randn((4, cfg.z_dim),
+                                   generator=torch.Generator().manual_seed(1)).to(dev))
+            targets = G.synthesize(ws)
+        pivot = ws + 0.3 * torch.randn(ws.shape,
+                                       generator=torch.Generator().manual_seed(2)).to(dev)
+        lpips = LPIPS("alex", device=dev, generator=torch.Generator().manual_seed(0))
+        pti = PTI(G, lpips, PTIOptions(lpips_threshold=0.0))
+        steps = 5
+        tuned = {}
+        for mode, n_img, shared in (("per image", 2, False), ("shared", 4, True)):
+            flrelu_cuda.reset_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            images, trees, log = run_pti_images.tune(pti, pivot[:n_img], targets[:n_img],
+                                                     batch_size=n_img, shared=shared,
+                                                     steps=steps)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            launches = dict(flrelu_cuda.launches)
+            passes = steps * (1 if shared else n_img)
+            renders = 1 if shared else n_img  # the final render: one call a batch or an image
+            losses = [v for entry in log for k in ("loss", "l2", "lpips") if k in entry
+                      for v in np.ravel(entry[k])]
+            ok = (launches == {"filtered_lrelu_fwd": n_layers * (passes + renders),
+                               "filtered_lrelu_bwd": n_layers * passes, **NO_FIR}
+                  and all(math.isfinite(v) for v in losses) and losses and finite(images)
+                  and tuple(images.shape) == (n_img, res, res, 3)
+                  and len(trees) == (1 if shared else n_img))
+            per = (f"{secs / steps:.4f} s per step" if shared
+                   else f"{secs / (steps * n_img):.4f} s per image-step")
+            print(f"run_pti_images.tune {mode}, {n_img} images x {steps} steps: launches "
+                  f"{launches}; {len(losses)} losses finite; {per} (final render included), "
+                  f"peak memory {peak:.3f} GiB {card}")
+            if not ok:
+                raise SystemExit(f"run_pti_images.tune {mode}: launch counts, non-finite "
+                                 "losses or images, or wrong shapes")
+            tuned[mode] = (images, trees)
+        # A per-image tree through the CLI's writer loads back into a generator
+        # whose render is the CLI's final render.
+        images, trees = tuned["per image"]
+        run_pti_images.save_tuned(trees[1], tmp / "b_model.npz")
+        G2 = Generator(cfg, device=dev, generator=torch.Generator().manual_seed(114))
+        load_jax_variables(G2, run_pti_images.tuned_variables(
+            base, npz_to_variables(tmp / "b_model.npz")["synthesis_tuned"]))
+        with torch.no_grad():
+            again = G2.synthesize(pivot[1:2], force_fp32=pti.force_fp32)
+        err = float((again[0] - images[1]).abs().max())
+        print(f"run_pti_images: image 1's tree from b_model.npz renders its final image: max abs "
+              f"err {err:.3e} (tol {IMAGE_TOL:g})")
+        if not err <= IMAGE_TOL:
+            raise SystemExit("a tuned tree written by the CLI does not render its final image")
+        del pti, lpips, G2, again, tuned, images, trees, ws, targets, pivot
+        torch.cuda.empty_cache()
+
+        # (c) ResNet-34 ReStyle, pSp and e4e, from a reference state dict.
+        torch.save(resnet_reference_state(cfg.num_ws, seed=120), tmp / "restyle_resnet.pt")
+        models = {}
+        for kind in ("ResNetProgressiveBackboneEncoder", "ResNetBackboneEncoder"):
+            t0 = time.perf_counter()
+            meta = convert_checkpoint.convert(str(tmp / "restyle_resnet.pt"), str(tmp / kind),
+                                              kind="encoder", encoder_type=kind)
+            model, opts = load_encoder(meta["checkpoint"], generator_variables=base, device=dev)
+            print(f"checkpoint restyle_resnet.pt as {kind}: converted and loaded in "
+                  f"{time.perf_counter() - t0:.3f} s ({meta['encoder']}, {opts.input_nc} input "
+                  f"channels, decoder {opts.output_size}²)")
+            if meta["encoder"] != {"trunk": "resnet34", "n_styles": cfg.num_ws} or \
+                    model.encoder_type != kind:
+                raise SystemExit(f"the ResNet checkpoint did not convert as {kind}")
+            shutil.rmtree(meta["checkpoint"])
+            (tmp / f"{kind}.npz").unlink()
+            models[kind] = model
+        n = RESTYLE_BATCH
+        faces = (torch.rand((n, 256, 256, 3), generator=torch.Generator().manual_seed(40)) * 2
+                 - 1).to(dev)
+        lt = torch.from_numpy(make_transform((0.05, -0.03), 5.0)).float().to(dev)
+        with torch.inference_mode():
+            for kind, model in models.items():
+                out, launches = {}, {}
+                for impl in ("auto", "ref"):
+                    flrelu_cuda.reset_launches()
+                    avg, lat = get_average_image(model, impl=impl)
+                    out[impl] = (avg, run_restyle_iterations(
+                        model, faces, avg, lat, n_iters=RESTYLE_ITERS, landmarks_transform=lt,
+                        impl=impl))
+                    torch.cuda.synchronize()
+                    launches[impl] = dict(flrelu_cuda.launches)
+                    torch.cuda.empty_cache()
+                ok = launches["auto"] == {"filtered_lrelu_fwd": n_layers * (1 + RESTYLE_ITERS),
+                                          "filtered_lrelu_bwd": 0, **NO_FIR}
+                avg_err = float((out["auto"][0] - out["ref"][0]).abs().max())
+                ok = ok and avg_err <= IMAGE_TOL and launches["ref"]["filtered_lrelu_fwd"] == 0
+                print(f"restyle {kind} batch {n}, dual decode (batch {2 * n}), fp32: launches "
+                      f"{launches['auto']} for {1 + RESTYLE_ITERS} decode calls; kernels vs "
+                      f"impl='ref': average image max abs err {avg_err:.3e} (tol {IMAGE_TOL:g})")
+                for i, ((a, u, c), (ra, ru, rc)) in enumerate(zip(out["auto"][1],
+                                                                  out["ref"][1])):
+                    c_err = float((c - rc).abs().max())
+                    a_err, u_err = float((a - ra).abs().max()), float((u - ru).abs().max())
+                    c_tol = RESTYLE_CODES_TOL * float(rc.abs().max())
+                    print(f"  iteration {i + 1}: codes max abs err {c_err:.3e} (tol "
+                          f"{c_tol:.3e}), aligned and unaligned images {a_err:.3e} and "
+                          f"{u_err:.3e} (tol {IMAGE_TOL:g})")
+                    ok = ok and finite(a, u, c) and max(a_err, u_err) <= IMAGE_TOL and \
+                        c_err <= c_tol and tuple(u.shape) == (n, 256, 256, 3)
+                if not ok:
+                    raise SystemExit(f"ReStyle {kind}: launch counts, or the kernels disagree "
+                                     "with impl='ref'")
+                del out
+            # Timing, after the drive above as warm-up; the encoders in turns.
+            avg = get_average_image(models["ResNetProgressiveBackboneEncoder"])[0]
+            x6 = torch.cat([faces, avg[None].expand(n, -1, -1, -1)], dim=-1)
+            for kind in tuple(models) * 2:
+                model = models[kind]
+                nbytes, flops = encoder_work(model.encoder, x6)
+                bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+                torch.cuda.reset_peak_memory_stats()
+                enc_ms = time_ms(lambda: model.encoder(x6), 10)
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                irse = irse_ms[kind.replace("ResNet", "")]
+                print(f"time encoder {kind} (ResNet-34, 256², 6 channels, {cfg.num_ws} styles), "
+                      f"batch {n}: {enc_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
+                      f"({'operations' if ops_ms > bytes_ms else 'bytes'}: {nbytes / 1e6:.1f} "
+                      f"MB, {flops / 1e9:.2f} GFLOP at the fp32 rate); IR-SE-50 in phase 10: "
+                      f"{' / '.join(f'{v:.4f}' for v in irse)} ms; peak memory {peak:.3f} GiB "
+                      f"{card}")
+            for kind, model in models.items():
+                avg, lat = get_average_image(model)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                reps = 3
+                for _ in range(reps):
+                    run_restyle_iterations(model, faces, avg, lat, n_iters=RESTYLE_ITERS,
+                                           landmarks_transform=lt)
+                torch.cuda.synchronize()
+                loop_s = (time.perf_counter() - t0) / reps
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                print(f"time restyle {kind} {RESTYLE_ITERS} iterations, dual decode, batch {n}: "
+                      f"{loop_s:.4f} s per batch, peak memory {peak:.3f} GiB {card}")
+        del models, model, faces, x6
+        torch.cuda.empty_cache()
+
+        # (d) FOV expansion of one face: 9 views in one synthesize (bf16 route).
+        # The canvas' centre is held against a batch-1 render within the
+        # generator tests' bf16 image tolerance, of max |ref|: ws is tiled, so
+        # the batch style RMS is the same in both, and what can differ is the
+        # library matmul of the modulated convs at another batch size (a tile
+        # or split choice that moves a sum's rounding); one bf16 ulp moved on
+        # any of L5-L13 can grow through the layers above it. A view that is
+        # not the centre's (the unshifted left view read at the centre) is
+        # another image, far beyond it.
+        fov_tol = RANGE_RENDER_TOL
+        ws = G.map(torch.randn((1, cfg.z_dim), generator=torch.Generator().manual_seed(130))
+                   .to(dev), truncation_psi=0.7).detach()
+        lt_np = make_transform((0.02, -0.04), 4.0)
+        pad = res // 4  # 256 pixels on each side at 1024²
+        exp = Expander(G, res)
+        with torch.inference_mode():
+            flrelu_cuda.reset_launches()
+            canvas = exp.generate_expanded_image(ws, lt_np, pad, pad, pad, pad)
+            torch.cuda.synchronize()
+            launches = dict(flrelu_cuda.launches)
+            plain = G.synthesize(ws, transform=torch.from_numpy(lt_np).float().to(dev))
+            scale = float(plain.abs().max())
+            centre = canvas[:, pad:pad + res, pad:pad + res]
+            err = float((centre - plain).abs().max()) / scale
+            fault = float((exp.views(ws, lt_np, pad, pad, pad, pad)["left"] - plain)
+                          .abs().max()) / scale
+            ok = (tuple(canvas.shape) == (1, res + 2 * pad, res + 2 * pad, 3) and finite(canvas)
+                  and launches == {"filtered_lrelu_fwd": n_layers, "filtered_lrelu_bwd": 0,
+                                   **NO_FIR}
+                  and err <= fov_tol < fault)
+            print(f"fov: canvas {tuple(canvas.shape)} from 9 views in one synthesize (batch 9), "
+                  f"launches {launches}; centre vs synthesize(ws, landmark_t) at batch 1: max abs "
+                  f"err {err:.4%} of max |ref| {scale:.3g} (tol {fov_tol:.2%}); the unshifted "
+                  f"left view there {fault:.4%} (must exceed the tol) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit("FOV expansion: wrong canvas, launch counts, or a centre off "
+                                 "the plain render (or the fault within the tolerance)")
+            del canvas, plain, centre
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fov_ms = time_ms(lambda: exp.generate_expanded_image(ws, lt_np, pad, pad, pad, pad),
+                             3, warmup=1)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"time fov expansion, 9 views x {res}² -> {res + 2 * pad}², bf16 route: "
+              f"{fov_ms:.4f} ms per expanded image, peak memory {peak:.3f} GiB {card}")
 
 
 def main() -> int:
@@ -570,6 +987,7 @@ def main() -> int:
         filtered_lrelu, filtered_lrelu_bwd_ref)
 
     # 1. Device.
+    t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1039,8 +1457,16 @@ def main() -> int:
     # 10. ReStyle inversion and InterFaceGAN editing at full width.
     del pti, lpips, G, ws, targets, pivot
     torch.cuda.empty_cache()
-    max_err = max(max_err, restyle_phase(dev, card, layers, layer_call, kernel_call))
+    restyle_err, irse_ms = restyle_phase(dev, card, layers, layer_call, kernel_call)
+    max_err = max(max_err, restyle_err)
     torch.cuda.empty_cache()
+
+    # 11. Reference checkpoints: conversion, run_pti_images, ResNet ReStyle, FOV.
+    t11 = time.perf_counter()
+    checkpoint_phase(dev, card, layers, irse_ms)
+    torch.cuda.empty_cache()
+    now = time.perf_counter()
+    print(f"elapsed: phase 11 {now - t11:.1f} s, the script {now - t_start:.1f} s")
 
     def fir_entry(name, replaces):
         row = fir_rows[name, FIR_SHAPES[1], torch.bfloat16]

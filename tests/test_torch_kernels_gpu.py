@@ -559,3 +559,141 @@ def test_face_editor_range_matches_per_factor_renders(cuda_device):
             for name, wrong in faults.items():
                 err = float((wrong - single).abs().max())
                 assert err > tol, f"f={f}: {name} reads {err:.3e}, within the tolerance {tol:.3e}"
+
+
+def _reference_state(G):
+    """A port generator's state in the reference's naming (conv weights
+    OIHW) with the stored identity transform."""
+    state = {k: (v.permute(3, 2, 0, 1) if k.endswith(".weight") and v.ndim == 4 else v)
+             .detach().cpu().contiguous() for k, v in G.state_dict().items()}
+    state["synthesis.input.transform"] = torch.eye(3)
+    return state
+
+
+@pytest.mark.gpu
+def test_converted_generator_reproduces_the_source(cuda_device, tmp_path):
+    """A slim SG3-R state dict in the reference's naming, through
+    `convert_checkpoint`, loads into a fresh generator whose fp32 image
+    through the kernels equals the source's bit for bit."""
+    from stylegan3_editing_tpu_torch.models.sg3 import load_jax_variables
+    from stylegan3_editing_tpu_torch.models.sg3.convert import npz_to_variables
+    from stylegan3_editing_tpu_torch.scripts import convert_checkpoint
+
+    cfg = sg3_r_config(64, **SLIM_R)
+    src = Generator(cfg, device=cuda_device, generator=torch.Generator().manual_seed(5))
+    torch.save(_reference_state(src), tmp_path / "G.pt")
+    convert_checkpoint.convert(str(tmp_path / "G.pt"), str(tmp_path / "G"), res=64,
+                               cfg_overrides=SLIM_R)
+    G = Generator(cfg, device=cuda_device, generator=torch.Generator().manual_seed(6))
+    load_jax_variables(G, npz_to_variables(tmp_path / "G.npz"))
+    z = torch.randn((2, cfg.z_dim), generator=torch.Generator().manual_seed(7)).to(cuda_device)
+    with torch.no_grad():
+        assert torch.equal(G(z, force_fp32=True), src(z, force_fp32=True))
+
+
+@pytest.mark.gpu
+def test_run_pti_images_tune_through_the_kernels(cuda_device, tmp_path):
+    """`run_pti_images.tune` per image on the card: one forward and one
+    backward launch per filtered layer per image-pass (plus the final
+    renders), finite results, and each image's tree, written by the CLI's
+    writer, renders that image's final image."""
+    from stylegan3_editing_tpu_torch.inversion import PTI, PTIOptions
+    from stylegan3_editing_tpu_torch.models.sg3 import load_jax_variables
+    from stylegan3_editing_tpu_torch.models.sg3.convert import npz_to_variables
+    from stylegan3_editing_tpu_torch.scripts import convert_checkpoint, run_pti_images
+
+    cfg = sg3_r_config(64, **SLIM_R)
+    n_layers = sum(s.up_filter is not None for s in build_synthesis_layout(cfg).layers)
+    src = Generator(cfg, device=cuda_device, generator=torch.Generator().manual_seed(8))
+    torch.save(_reference_state(src), tmp_path / "G.pt")
+    convert_checkpoint.convert(str(tmp_path / "G.pt"), str(tmp_path / "G"), res=64,
+                               cfg_overrides=SLIM_R)
+    G = run_pti_images.load_generator(str(tmp_path / "G.npz"), cfg, cuda_device)
+    gen = torch.Generator().manual_seed(9)
+    with torch.no_grad():
+        ws = G.map(torch.randn((2, cfg.z_dim), generator=gen).to(cuda_device))
+        targets = G.synthesize(ws)
+    pivot = ws + 0.3 * torch.randn(ws.shape, generator=gen).to(cuda_device)
+    pti = PTI(G, opts=PTIOptions(lpips_threshold=0.0))
+    flrelu_cuda.reset_launches()
+    images, trees, log = run_pti_images.tune(pti, pivot, targets, batch_size=2, steps=2)
+    torch.cuda.synchronize()
+    assert flrelu_cuda.launches["filtered_lrelu_fwd"] == n_layers * (2 * 2 + 2)
+    assert flrelu_cuda.launches["filtered_lrelu_bwd"] == n_layers * 2 * 2
+    assert bool(torch.isfinite(images).all()) and len(trees) == 2
+    assert all(np.isfinite(log[0]["lpips"]))
+    base = npz_to_variables(tmp_path / "G.npz")
+    for i, tree in enumerate(trees):
+        run_pti_images.save_tuned(tree, tmp_path / f"{i}_model.npz")
+        G2 = Generator(cfg, device=cuda_device)
+        load_jax_variables(G2, run_pti_images.tuned_variables(
+            base, npz_to_variables(tmp_path / f"{i}_model.npz")["synthesis_tuned"]))
+        with torch.no_grad():
+            again = G2.synthesize(pivot[i:i + 1], force_fp32=pti.force_fp32)
+        torch.testing.assert_close(again[0], images[i], rtol=0, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("encoder_type", ["ResNetBackboneEncoder",
+                                          "ResNetProgressiveBackboneEncoder"])
+def test_resnet_restyle_through_the_kernels_matches_plain(cuda_device, encoder_type):
+    """RestyleNet with a ResNet-34 trunk on a slim SG3-R decoder on the card,
+    as `test_restyle_through_the_kernels_matches_plain` holds the IR-SE-50
+    one: the average image and two iterations with a landmarks transform
+    through the kernels against ``impl="ref"``."""
+    from stylegan3_editing_tpu_torch.models.encoders import (RestyleNet, get_average_image,
+                                                             run_restyle_iterations)
+
+    cfg = sg3_r_config(64, **SLIM_R)
+    n_layers = sum(s.up_filter is not None for s in build_synthesis_layout(cfg).layers)
+    model = RestyleNet(cfg, encoder_type, n_styles=cfg.num_ws, device=cuda_device)
+    faces = (torch.rand((2, 256, 256, 3), generator=torch.Generator().manual_seed(10)) * 2
+             - 1).to(cuda_device)
+    lt = torch.eye(3)
+    lt[1, 2] = -0.05
+    out = {}
+    for impl in ("auto", "ref"):
+        flrelu_cuda.reset_launches()
+        with torch.no_grad():
+            avg, lat = get_average_image(model, impl=impl)
+            out[impl] = [avg] + [t for a, u, c in run_restyle_iterations(
+                model, faces, avg, lat, n_iters=2, landmarks_transform=lt.to(cuda_device),
+                impl=impl) for t in (a, u, c)]
+        torch.cuda.synchronize()
+        assert flrelu_cuda.launches["filtered_lrelu_fwd"] == {"auto": 3 * n_layers,
+                                                              "ref": 0}[impl]
+    for i, (got, ref) in enumerate(zip(out["auto"], out["ref"])):
+        codes = ref.ndim == 3 and ref.shape[-1] == 512
+        atol = 1e-3 * float(ref.abs().max()) if codes else 1e-3
+        torch.testing.assert_close(got, ref, rtol=0, atol=atol, msg=f"output {i}")
+
+
+@pytest.mark.gpu
+def test_expander_on_the_card(cuda_device):
+    """`Expander` with every margin: 9 views in one synthesize (one launch per
+    filtered layer, the bf16 route on the top layers); the canvas' centre
+    matches a batch-1 render within `RANGE_RENDER_TOL` of max |ref| (the
+    generator tests' bf16 image tolerance), and the unshifted left view read
+    there lies beyond it."""
+    from stylegan3_editing_tpu_torch.editing.interfacegan import RANGE_RENDER_TOL
+    from stylegan3_editing_tpu_torch.utils.common import make_transform
+    from stylegan3_editing_tpu_torch.utils.fov_expansion import Expander
+
+    cfg = sg3_r_config(64, **SLIM_R)
+    n_layers = sum(s.up_filter is not None for s in build_synthesis_layout(cfg).layers)
+    G = Generator(cfg, device=cuda_device)
+    lt = make_transform((0.03, -0.02), 4.0)
+    exp = Expander(G, 64)
+    with torch.no_grad():
+        ws = G.map(torch.randn((1, cfg.z_dim), generator=torch.Generator().manual_seed(11))
+                   .to(cuda_device), truncation_psi=0.7)
+        flrelu_cuda.reset_launches()
+        canvas = exp.generate_expanded_image(ws, lt, 16, 16, 16, 16)
+        torch.cuda.synchronize()
+        assert flrelu_cuda.launches["filtered_lrelu_fwd"] == n_layers
+        assert canvas.shape == (1, 96, 96, 3)
+        plain = G.synthesize(ws, transform=torch.from_numpy(lt).float().to(cuda_device))
+        tol = RANGE_RENDER_TOL * float(plain.abs().max())
+        torch.testing.assert_close(canvas[:, 16:80, 16:80], plain, rtol=0, atol=tol)
+        left = exp.views(ws, lt, 16, 16, 16, 16)["left"]
+        assert float((left - plain).abs().max()) > tol
