@@ -96,7 +96,8 @@ Phases (any failure exits non-zero before the result lines):
    synthesize (bf16 route), the 1536² canvas, 14 launches, the centre
    against a batch-1 render within the generator tests' bf16 image
    tolerance, which the unshifted left view must exceed; ms per expanded
-   image and peak memory.
+   image and peak memory; then kernel #1 at that batch of 9 (each layer's
+   dtype) against its plain version and timed beside its bound.
 
 PyTorch's TF32 flags stay at their defaults: matmuls run in fp32 by
 default, and the port holds its cuDNN convs to fp32 itself (`device.conv2d`;
@@ -696,13 +697,15 @@ def resnet_reference_state(n_styles: int, seed: int, input_nc: int = 6) -> dict:
     return state
 
 
-def checkpoint_phase(dev, card, layers, irse_ms) -> None:
+def checkpoint_phase(dev, card, layers, layer_call, kernel_call, irse_ms) -> float:
     """Phase 11: a reference user's checkpoints on the card, with no JAX:
     (a) a seeded SG3-R 1024 generator written as a reference ``.pt`` and as
     an official-format pickle, converted by `convert_checkpoint`; (b)
     `run_pti_images.tune` from the pickle's ``.npz``, both modes; (c)
     ResNet-34 ReStyle pSp and e4e from a reference-format state dict through
-    the converter and `load_encoder`; (d) FOV expansion of one face."""
+    the converter and `load_encoder`; (d) FOV expansion of one face, and
+    kernel #1 at its batch of 9 (`layer_rows`). Returns #1's largest error
+    against its plain version there."""
     import shutil
     import tempfile
 
@@ -966,6 +969,10 @@ def checkpoint_phase(dev, card, layers, irse_ms) -> None:
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
         print(f"time fov expansion, 9 views x {res}² -> {res + 2 * pad}², bf16 route: "
               f"{fov_ms:.4f} ms per expanded image, peak memory {peak:.3f} GiB {card}")
+    del exp, G
+    torch.cuda.empty_cache()
+    return layer_rows(dev, card, layers, layer_call, kernel_call, 9, False, 900,
+                      "fov expansion")[2]
 
 
 def main() -> int:
@@ -1463,7 +1470,8 @@ def main() -> int:
 
     # 11. Reference checkpoints: conversion, run_pti_images, ResNet ReStyle, FOV.
     t11 = time.perf_counter()
-    checkpoint_phase(dev, card, layers, irse_ms)
+    max_err = max(max_err, checkpoint_phase(dev, card, layers, layer_call, kernel_call,
+                                            irse_ms))
     torch.cuda.empty_cache()
     now = time.perf_counter()
     print(f"elapsed: phase 11 {now - t11:.1f} s, the script {now - t_start:.1f} s")

@@ -104,27 +104,20 @@ def torch_state_to_variables(
     return variables, transform
 
 
-def _flat_names(tree: Mapping, prefix: str, out: Dict[str, tuple]) -> None:
-    for key, value in tree.items():
-        name = f"{prefix}.{key}" if prefix else str(key)
-        if isinstance(value, Mapping):
-            _flat_names(value, name, out)
-        else:
-            out[name] = tuple(np.shape(value))
-
-
 def _validate_against_init(variables: dict, cfg: SG3Config, strict: bool) -> None:
     """Names and shapes of the tree against a port `Generator`'s state dict
     (the counterpart of the JAX package's ``jax.eval_shape`` of its init)."""
     import torch
 
+    from .from_jax import _flatten
     from .generator import Generator
 
     ref = {k: tuple(v.shape) for k, v in Generator(
         cfg, device="cpu", generator=torch.Generator().manual_seed(0)).state_dict().items()}
-    got: Dict[str, tuple] = {}
+    flat: Dict[str, np.ndarray] = {}
     for coll in ("params", "buffers", "ema"):
-        _flat_names(variables.get(coll, {}), "", got)
+        _flatten(variables.get(coll, {}), "", flat)
+    got = {k: tuple(v.shape) for k, v in flat.items()}
     missing = [k for k in ref if k not in got]
     extra = [k for k in got if k not in ref]
     bad_shape = [(k, got[k], ref[k]) for k in ref if k in got and got[k] != ref[k]]
@@ -139,20 +132,15 @@ def _validate_against_init(variables: dict, cfg: SG3Config, strict: bool) -> Non
         raise ValueError("checkpoint does not match config: " + "; ".join(problems))
 
 
-def load_torch_state(path) -> Dict[str, np.ndarray]:
-    """A reference ``.pt`` state dict (or a ``{"state_dict": ...}`` wrapper),
-    read by torch's weights-only unpickler, as numpy arrays."""
+def load_torch_pt(path, cfg: SG3Config, strict: bool = True):
+    """A reference ``.pt`` generator state dict (or a ``{"state_dict": ...}``
+    wrapper), read by torch's weights-only unpickler → (variables, transform)."""
     import torch
 
     state = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(state, dict) and "state_dict" in state:
         state = state["state_dict"]
-    return {k: as_numpy(v) for k, v in state.items()}
-
-
-def load_torch_pt(path, cfg: SG3Config, strict: bool = True):
-    """A reference ``.pt`` generator state dict → (variables, transform)."""
-    return torch_state_to_variables(load_torch_state(path), cfg, strict=strict)
+    return torch_state_to_variables(state, cfg, strict=strict)
 
 
 def load_pkl(path, cfg: SG3Config, strict: bool = True):
@@ -164,7 +152,8 @@ def load_pkl(path, cfg: SG3Config, strict: bool = True):
 
     data = load_network_pkl(path)
     g_ema = data.get("G_ema", data.get("G"))
-    assert g_ema is not None, "pickle holds no generator"
+    if g_ema is None:
+        raise ValueError(f"{path} holds no generator (no G_ema or G entry)")
     return torch_state_to_variables(state_dict_of(g_ema), cfg, strict=strict)
 
 

@@ -143,7 +143,8 @@ def convert(src: str, dst: str, kind: str = "auto", preset: str = "sg3-r",
 
         data = load_network_pkl(src)
         g = data.get(entry) or data.get("G_ema") or data.get("G")
-        assert g is not None, f"pickle holds no {entry!r}/G_ema/G entry"
+        if g is None:
+            raise ValueError(f"{src} holds no {entry!r}, G_ema or G entry")
         init_kwargs = dict(getattr(g, "init_kwargs", {}) or {})
         # The captured constructor kwargs override the preset (official SG3
         # pickles carry the whole synthesis config at the top level).
