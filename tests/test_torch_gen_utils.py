@@ -89,14 +89,15 @@ def test_get_w_from_seed_maps_the_seeded_z(pair):
         _close(got, ref, LATENT_RTOL * float(np.abs(ref).max()), "get_w_from_seed")
 
 
-def test_expander_matches_jax(pair):
-    """tests/test_editing.py's expansion (left 4, top 2, right 3, bottom 0):
-    the canvas against the JAX `Expander`'s, and its centre against a plain
-    synthesis."""
+@pytest.mark.parametrize("shift", [0.0, 0.05], ids=["identity", "shifted"])
+def test_expander_matches_jax(pair, shift):
+    """tests/test_editing.py's expansion (left 4, top 2, right 3, bottom 0),
+    with its identity landmarks transform and a shifted one: the canvas
+    against the JAX `Expander`'s, and its centre against a plain synthesis."""
     jmodel, variables, G = pair
     ws = np.random.RandomState(102).randn(1, G.num_ws, 512).astype(np.float32)
     lm = np.eye(3, dtype=np.float32)
-    lm[0, 2] = 0.05
+    lm[0, 2] = shift
     kw = dict(pixels_left=4, pixels_top=2, pixels_right=3, pixels_bottom=0)
     ref = jfov.Expander(jmodel, variables, 32).generate_expanded_image(jnp.asarray(ws), lm, **kw)
     got = Expander(G, 32).generate_expanded_image(torch.from_numpy(ws), lm, **kw)
