@@ -611,12 +611,19 @@ def _persistent(name, state, init_kwargs=None):
                "_init_kwargs": init_kwargs or {}}))
 
 
-def write_reference_pickle(path, state, init_kwargs) -> None:
-    """An official-format SG3 pickle (``G``, ``G_ema``) of ``state``. Stand-ins
+def write_reference_pickle(path, state, cfg) -> None:
+    """An official-format SG3 pickle (``G``, ``G_ema``) of ``state``, with the
+    config ``cfg`` captured as the generator's constructor kwargs. Stand-ins
     for the reference's `torch_utils.persistence` live in `sys.modules` only
     while it is written; its reconstruct hook raises if a reader calls it."""
     import pickle
     import types
+
+    init_kwargs = dict(
+        z_dim=cfg.z_dim, c_dim=0, w_dim=cfg.w_dim, img_resolution=cfg.img_resolution,
+        img_channels=3, channel_base=cfg.channel_base, channel_max=cfg.channel_max,
+        num_layers=cfg.num_layers, conv_kernel=cfg.conv_kernel,
+        use_radial_filters=cfg.use_radial_filters, magnitude_ema_beta=cfg.magnitude_ema_beta)
 
     tu, pe = types.ModuleType("torch_utils"), types.ModuleType("torch_utils.persistence")
 
@@ -642,7 +649,9 @@ def write_reference_pickle(path, state, init_kwargs) -> None:
 
 def reference_state(G) -> dict:
     """A port generator's state in the reference's naming: the same names,
-    conv weights HWIO → OIHW, and the stored user transform (identity)."""
+    conv weights HWIO → OIHW, and the stored user transform (identity).
+    The GPU tests write their reference checkpoints with this and
+    `write_reference_pickle` too."""
     state = {}
     for k, v in G.state_dict().items():
         v = v.detach().cpu()
@@ -742,12 +751,7 @@ def checkpoint_phase(dev, card, layers, layer_call, kernel_call, irse_ms) -> flo
             src.mapping.w_avg.copy_(src.map(z)[:, 0].mean(0))
         state = reference_state(src)
         torch.save(state, tmp / "G.pt")
-        write_reference_pickle(tmp / "G.pkl", state, dict(
-            z_dim=cfg.z_dim, c_dim=0, w_dim=cfg.w_dim, img_resolution=cfg.img_resolution,
-            img_channels=3, channel_base=cfg.channel_base, channel_max=cfg.channel_max,
-            num_layers=cfg.num_layers, conv_kernel=cfg.conv_kernel,
-            use_radial_filters=cfg.use_radial_filters,
-            magnitude_ema_beta=cfg.magnitude_ema_beta))
+        write_reference_pickle(tmp / "G.pkl", state, cfg)
         del state
         z = torch.randn((1, cfg.z_dim), generator=torch.Generator().manual_seed(112)).to(dev)
         with torch.inference_mode():
@@ -837,14 +841,18 @@ def checkpoint_phase(dev, card, layers, layer_call, kernel_call, irse_ms) -> flo
         torch.cuda.empty_cache()
 
         # (c) ResNet-34 ReStyle, pSp and e4e, from a reference state dict.
-        torch.save(resnet_reference_state(cfg.num_ws, seed=120), tmp / "restyle_resnet.pt")
+        # Saved as the reference saves a ReStyle model: the encoder's keys
+        # under ``encoder.`` and the encoder type in ``opts``.
+        encoder_state = {f"encoder.{k}": v
+                         for k, v in resnet_reference_state(cfg.num_ws, seed=120).items()}
         models = {}
         for kind in ("ResNetProgressiveBackboneEncoder", "ResNetBackboneEncoder"):
+            src = tmp / f"restyle_{kind}.pt"
+            torch.save({"state_dict": encoder_state, "opts": {"encoder_type": kind}}, src)
             t0 = time.perf_counter()
-            meta = convert_checkpoint.convert(str(tmp / "restyle_resnet.pt"), str(tmp / kind),
-                                              kind="encoder", encoder_type=kind)
+            meta = convert_checkpoint.convert(str(src), str(tmp / kind), kind="encoder")
             model, opts = load_encoder(meta["checkpoint"], generator_variables=base, device=dev)
-            print(f"checkpoint restyle_resnet.pt as {kind}: converted and loaded in "
+            print(f"checkpoint {src.name}: converted and loaded in "
                   f"{time.perf_counter() - t0:.3f} s ({meta['encoder']}, {opts.input_nc} input "
                   f"channels, decoder {opts.output_size}²)")
             if meta["encoder"] != {"trunk": "resnet34", "n_styles": cfg.num_ws} or \
@@ -852,6 +860,7 @@ def checkpoint_phase(dev, card, layers, layer_call, kernel_call, irse_ms) -> flo
                 raise SystemExit(f"the ResNet checkpoint did not convert as {kind}")
             shutil.rmtree(meta["checkpoint"])
             (tmp / f"{kind}.npz").unlink()
+            src.unlink()
             models[kind] = model
         n = RESTYLE_BATCH
         faces = (torch.rand((n, 256, 256, 3), generator=torch.Generator().manual_seed(40)) * 2

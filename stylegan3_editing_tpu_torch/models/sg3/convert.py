@@ -106,7 +106,10 @@ def torch_state_to_variables(
 
 def _validate_against_init(variables: dict, cfg: SG3Config, strict: bool) -> None:
     """Names and shapes of the tree against a port `Generator`'s state dict
-    (the counterpart of the JAX package's ``jax.eval_shape`` of its init)."""
+    (the counterpart of the JAX package's ``jax.eval_shape`` of its init).
+    Not strict, nothing is checked."""
+    if not strict:
+        return
     import torch
 
     from .from_jax import _flatten
@@ -128,7 +131,7 @@ def _validate_against_init(variables: dict, cfg: SG3Config, strict: bool) -> Non
         problems.append(f"unexpected: {extra[:8]}")
     if bad_shape:
         problems.append(f"shape mismatch: {bad_shape[:8]}")
-    if problems and strict:
+    if problems:
         raise ValueError("checkpoint does not match config: " + "; ".join(problems))
 
 
@@ -143,18 +146,25 @@ def load_torch_pt(path, cfg: SG3Config, strict: bool = True):
     return torch_state_to_variables(state, cfg, strict=strict)
 
 
-def load_pkl(path, cfg: SG3Config, strict: bool = True):
-    """An official SG3 ``.pkl`` (persistence-embedded classes) → (variables,
-    transform). The embedded class source is never executed and the
-    reference checkout is not needed (`persistence.py`); TF1 pickles read
-    through the same entry point."""
+def pkl_generator_state(path, entry: str = "G_ema") -> Tuple[dict, dict]:
+    """An official SG3 ``.pkl``'s generator (``entry``, else ``G_ema``, else
+    ``G``) → (its state dict, its captured constructor kwargs). The
+    embedded class source is never executed and the reference checkout is
+    not needed (`persistence.py`); TF1 pickles read through the same entry
+    point."""
     from .persistence import load_network_pkl, state_dict_of
 
     data = load_network_pkl(path)
-    g_ema = data.get("G_ema", data.get("G"))
-    if g_ema is None:
-        raise ValueError(f"{path} holds no generator (no G_ema or G entry)")
-    return torch_state_to_variables(state_dict_of(g_ema), cfg, strict=strict)
+    g = data.get(entry) or data.get("G_ema") or data.get("G")
+    if g is None:
+        raise ValueError(f"{path} holds no {entry!r}, G_ema or G entry")
+    return state_dict_of(g), dict(getattr(g, "init_kwargs", {}) or {})
+
+
+def load_pkl(path, cfg: SG3Config, strict: bool = True):
+    """An official SG3 ``.pkl`` → (variables, transform), for a known config."""
+    state, _ = pkl_generator_state(path)
+    return torch_state_to_variables(state, cfg, strict=strict)
 
 
 def _flat_keys(tree: Mapping, prefix: str, out: dict) -> None:

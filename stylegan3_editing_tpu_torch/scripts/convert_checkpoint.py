@@ -20,8 +20,8 @@ read, so ``--kind encoder`` also writes ``<dst>_checkpoint``, a checkpoint
 in the numpy format (`runtime.checkpoint`) that `load_encoder` reads: the
 encoder, the decoder when the file holds ``decoder.*`` keys (else pass
 ``generator_variables`` to `load_encoder`), and the options. The encoder
-type is ``--encoder_type``, else the checkpoint's ``opts``, else the e4e
-type of its trunk. The kinds ``sg2_stem``, ``backbone`` and
+type is the checkpoint's ``opts.encoder_type``, else the e4e type of its
+trunk. The kinds ``sg2_stem``, ``backbone`` and
 ``class_embedding`` are not ported yet and raise.
 
     python -m stylegan3_editing_tpu_torch.scripts.convert_checkpoint \\
@@ -39,7 +39,8 @@ from typing import Optional, Sequence
 import numpy as np
 
 from ..models.sg3.config import sg3_r_config, sg3_t_config
-from ..models.sg3.convert import as_numpy, torch_state_to_variables, variables_to_npz
+from ..models.sg3.convert import (as_numpy, pkl_generator_state, torch_state_to_variables,
+                                  variables_to_npz)
 
 _CFG_KEYS = ("z_dim", "c_dim", "w_dim", "img_channels", "channel_base",
              "channel_max", "num_layers", "num_critical", "conv_kernel",
@@ -78,15 +79,14 @@ def _sg3_meta(meta: dict, cfg, transform) -> None:
 
 
 def _encoder_checkpoint(dst: str, ckpt: dict, state: dict, enc_state: dict, variables: dict,
-                        info: dict, preset: str, res: int, overrides: dict,
-                        encoder_type: Optional[str]) -> str:
+                        info: dict, preset: str, res: int, overrides: dict) -> str:
     """Write the numpy-format checkpoint `load_encoder` reads; its path."""
     from ..runtime.checkpoint import save_pytree
     from ..training.options import E4eTrainOptions, TrainOptions
 
     saved = dict(ckpt.get("opts") or {}) if "state_dict" in ckpt else {}
     resnet = info["trunk"] == "resnet34"
-    encoder_type = encoder_type or saved.get("encoder_type") or (
+    encoder_type = saved.get("encoder_type") or (
         "ResNetProgressiveBackboneEncoder" if resnet else "ProgressiveBackboneEncoder")
     is_e4e = "Progressive" in encoder_type
     opts_cls = E4eTrainOptions if is_e4e else TrainOptions
@@ -116,8 +116,7 @@ def _encoder_checkpoint(dst: str, ckpt: dict, state: dict, enc_state: dict, vari
 
 def convert(src: str, dst: str, kind: str = "auto", preset: str = "sg3-r",
             res: int = 1024, entry: str = "G_ema",
-            cfg_overrides: Optional[dict] = None, strict: bool = True,
-            encoder_type: Optional[str] = None) -> dict:
+            cfg_overrides: Optional[dict] = None, strict: bool = True) -> dict:
     """Convert ``src`` and write ``<dst>.npz`` and ``<dst>.json``; returns the metadata."""
     if kind in _NOT_PORTED:
         raise NotImplementedError(f"--kind {kind} needs {_NOT_PORTED[kind]}, not ported yet")
@@ -139,20 +138,14 @@ def convert(src: str, dst: str, kind: str = "auto", preset: str = "sg3-r",
                                       f"{_NOT_PORTED[kind]}, not ported yet")
 
     if kind == "sg3" and src.endswith(".pkl"):
-        from ..models.sg3.persistence import load_network_pkl, state_dict_of
-
-        data = load_network_pkl(src)
-        g = data.get(entry) or data.get("G_ema") or data.get("G")
-        if g is None:
-            raise ValueError(f"{src} holds no {entry!r}, G_ema or G entry")
-        init_kwargs = dict(getattr(g, "init_kwargs", {}) or {})
+        state, init_kwargs = pkl_generator_state(src, entry)
         # The captured constructor kwargs override the preset (official SG3
         # pickles carry the whole synthesis config at the top level).
         for k in _CFG_KEYS:
             if k in init_kwargs and k not in overrides:
                 overrides[k] = init_kwargs[k]
         cfg = _sg3_cfg(preset, int(init_kwargs.get("img_resolution", res)), overrides)
-        variables, transform = torch_state_to_variables(state_dict_of(g), cfg, strict=strict)
+        variables, transform = torch_state_to_variables(state, cfg, strict=strict)
         _sg3_meta(meta, cfg, transform)
     elif kind == "sg3":
         cfg = _sg3_cfg(preset, res, overrides)
@@ -166,7 +159,7 @@ def convert(src: str, dst: str, kind: str = "auto", preset: str = "sg3-r",
         variables, info = convert_restyle_encoder_state(enc_state)
         meta["encoder"] = info
         meta["checkpoint"] = _encoder_checkpoint(dst, ckpt, state, enc_state, variables, info,
-                                                 preset, res, overrides, encoder_type)
+                                                 preset, res, overrides)
     else:
         raise SystemExit(f"unknown kind {kind!r}")
 
@@ -189,12 +182,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     p.add_argument("--entry", default="G_ema", help="pickle entry to convert")
     p.add_argument("--cfg", default="", help="JSON config overrides")
     p.add_argument("--no-strict", action="store_true")
-    p.add_argument("--encoder_type", default=None,
-                   help="the ReStyle encoder class of an encoder checkpoint")
     a = p.parse_args(argv)
     return convert(a.src, a.dst, kind=a.kind, preset=a.preset, res=a.res, entry=a.entry,
                    cfg_overrides=json.loads(a.cfg) if a.cfg else None,
-                   strict=not a.no_strict, encoder_type=a.encoder_type)
+                   strict=not a.no_strict)
 
 
 if __name__ == "__main__":

@@ -6,7 +6,9 @@ reference's formats: a generator's state dict (OIHW convs and the stored
 ``synthesis.input.transform``, the inverse of the JAX converter applied to
 a JAX tree) saved as a ``.pt`` and as an official-format
 ``persistent_class`` pickle whose embedded source raises if it is ever run
-(`tests/test_converters.py`'s fakes), TF1 pickles, and malicious pickles.
+(`chip_smoke.write_reference_pickle`, the writer phase 11 of the smoke
+uses), TF1 pickles (`tests/test_converters.py`'s fakes), and malicious
+pickles.
 Both packages read and convert each file: the trees are equal leaf for
 leaf, and the two generators' images agree within 1e-5 of max |ref| (fp32
 on both sides, the convs and matmuls summing in another order).
@@ -33,7 +35,8 @@ from stylegan3_editing_tpu.models.sg3 import persistence as jpersistence
 from stylegan3_editing_tpu_torch.models.sg3 import Generator, load_jax_variables, sg3_r_config
 from stylegan3_editing_tpu_torch.models.sg3 import convert, persistence
 from stylegan3_editing_tpu_torch.scripts import convert_checkpoint
-from test_converters import _FakePersistent, fake_persistence_modules  # noqa: F401
+from chip_smoke import write_reference_pickle
+from test_converters import fake_persistence_modules  # noqa: F401
 from test_torch_encoders import generator_variables, irse50_reference_state
 
 torch.set_num_threads(1)
@@ -42,8 +45,6 @@ ROOT = Path(__file__).resolve().parents[1]
 RES = 64
 SLIM = dict(channel_base=2048, channel_max=64, num_layers=6)
 IMAGE_RTOL = 1e-5  # of max |ref|
-BUFFERS = {"w_avg", "freqs", "phases", "transform", "magnitude_ema", "up_filter",
-           "down_filter"}
 
 
 def _flat(tree, prefix=""):
@@ -85,35 +86,6 @@ def source():
     return cfg, variables, transform, reference_state(variables, transform)
 
 
-def _persistent(name, state, init_kwargs=None):
-    """A `persistent_class` object's pickle form for a nested state dict."""
-    params, buffers, children = {}, {}, {}
-    for key, value in state.items():
-        head, _, rest = key.partition(".")
-        if rest:
-            children.setdefault(head, {})[rest] = value
-        else:
-            (buffers if head in BUFFERS else params)[head] = value
-    meta = dict(type="class", version=6, module_src="raise RuntimeError('embedded code ran')",
-                class_name=name,
-                state={"_parameters": params, "_buffers": buffers,
-                       "_modules": {k: _persistent(k, v) for k, v in children.items()},
-                       "_init_kwargs": init_kwargs or {}})
-    return _FakePersistent(meta)
-
-
-def write_pickle(path, state, cfg):
-    init_kwargs = dict(z_dim=cfg.z_dim, c_dim=0, w_dim=cfg.w_dim,
-                       img_resolution=cfg.img_resolution, img_channels=3,
-                       channel_base=cfg.channel_base, channel_max=cfg.channel_max,
-                       num_layers=cfg.num_layers, conv_kernel=cfg.conv_kernel,
-                       use_radial_filters=cfg.use_radial_filters)
-    with open(path, "wb") as f:
-        pickle.dump({"G": _persistent("Generator", state, init_kwargs),
-                     "G_ema": _persistent("Generator", state, init_kwargs),
-                     "training_set_kwargs": None}, f)
-
-
 def _images(cfg, jvars, tvars):
     ws = np.random.RandomState(62).randn(2, cfg.num_ws, cfg.w_dim).astype(np.float32)
     jmodel = JaxGenerator(cfg)
@@ -145,11 +117,11 @@ def test_pt_state_dict_converts_as_in_jax(source, tmp_path):
     _images(cfg, ref, got)
 
 
-def test_persistent_pickle_converts_as_in_jax(source, tmp_path, fake_persistence_modules):
+def test_persistent_pickle_converts_as_in_jax(source, tmp_path):
     """An official-format pickle: read without running its embedded source,
     its stubs' state dicts equal in both packages, and the trees equal."""
     cfg, variables, transform, state = source
-    write_pickle(tmp_path / "net.pkl", state, cfg)
+    write_reference_pickle(tmp_path / "net.pkl", state, cfg)
     data = persistence.load_network_pkl(tmp_path / "net.pkl")
     jdata = jpersistence.load_network_pkl(tmp_path / "net.pkl")
     g = data["G_ema"]
@@ -315,13 +287,13 @@ def _same_outputs(dst, jdst):
     return meta
 
 
-def test_convert_checkpoint_cli_matches_jax(source, tmp_path, fake_persistence_modules):
+def test_convert_checkpoint_cli_matches_jax(source, tmp_path):
     """`convert_checkpoint --kind auto` on a ``.pkl`` (config from the
     pickle's init kwargs) and on a ``.pt`` (config from the preset and
     overrides): the same files as the JAX CLI's, and each loads into a port
     `Generator` equal to the source tree."""
     cfg, variables, transform, state = source
-    write_pickle(tmp_path / "net.pkl", state, cfg)
+    write_reference_pickle(tmp_path / "net.pkl", state, cfg)
     torch.save(state, tmp_path / "gen.pt")
     jcli = _jax_cli()
     for src, kw in (("net.pkl", {}), ("gen.pt", dict(res=RES, cfg_overrides=dict(SLIM)))):

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import reference_state
 from stylegan3_editing_tpu_torch.models.backbones.common import Conv2d
 from stylegan3_editing_tpu_torch.models.sg3 import (Generator, build_synthesis_layout,
                                                     sg3_r_config, sg3_t_config)
@@ -561,15 +562,6 @@ def test_face_editor_range_matches_per_factor_renders(cuda_device):
                 assert err > tol, f"f={f}: {name} reads {err:.3e}, within the tolerance {tol:.3e}"
 
 
-def _reference_state(G):
-    """A port generator's state in the reference's naming (conv weights
-    OIHW) with the stored identity transform."""
-    state = {k: (v.permute(3, 2, 0, 1) if k.endswith(".weight") and v.ndim == 4 else v)
-             .detach().cpu().contiguous() for k, v in G.state_dict().items()}
-    state["synthesis.input.transform"] = torch.eye(3)
-    return state
-
-
 @pytest.mark.gpu
 def test_converted_generator_reproduces_the_source(cuda_device, tmp_path):
     """A slim SG3-R state dict in the reference's naming, through
@@ -581,7 +573,7 @@ def test_converted_generator_reproduces_the_source(cuda_device, tmp_path):
 
     cfg = sg3_r_config(64, **SLIM_R)
     src = Generator(cfg, device=cuda_device, generator=torch.Generator().manual_seed(5))
-    torch.save(_reference_state(src), tmp_path / "G.pt")
+    torch.save(reference_state(src), tmp_path / "G.pt")
     convert_checkpoint.convert(str(tmp_path / "G.pt"), str(tmp_path / "G"), res=64,
                                cfg_overrides=SLIM_R)
     G = Generator(cfg, device=cuda_device, generator=torch.Generator().manual_seed(6))
@@ -605,7 +597,7 @@ def test_run_pti_images_tune_through_the_kernels(cuda_device, tmp_path):
     cfg = sg3_r_config(64, **SLIM_R)
     n_layers = sum(s.up_filter is not None for s in build_synthesis_layout(cfg).layers)
     src = Generator(cfg, device=cuda_device, generator=torch.Generator().manual_seed(8))
-    torch.save(_reference_state(src), tmp_path / "G.pt")
+    torch.save(reference_state(src), tmp_path / "G.pt")
     convert_checkpoint.convert(str(tmp_path / "G.pt"), str(tmp_path / "G"), res=64,
                                cfg_overrides=SLIM_R)
     G = run_pti_images.load_generator(str(tmp_path / "G.npz"), cfg, cuda_device)

@@ -9,10 +9,8 @@ XLA and in PyTorch, about 1e-7 relative a sum), as in
 `test_torch_encoders.py`:
 - `BasicBlock` (two convs and batch norms): 1e-5 of max |ref|;
 - `ResNet34Body` and the encoders (36 convs and batch norms deep, then a
-  head of 4 convs): 1e-4 of max |ref|;
-- RestyleNet with each ResNet trunk on the 64² SG3 decoder: the images of
-  two iterations at 2e-4 absolute (the generator tests' 1e-4 on top of the
-  codes' own error), the codes at 1e-4 of max |ref|.
+  head of 4 convs): 1e-4 of max |ref|.
+RestyleNet with each ResNet trunk is held in `test_torch_resnet_restyle.py`.
 The converter's ResNet branch is held leaf for leaf against the JAX one on
 a state dict with the reference's key names (the flat ``body.N`` of the
 reference's Sequential).
@@ -29,18 +27,13 @@ import torch
 from stylegan3_editing_tpu.models.backbones import resnet as jresnet
 from stylegan3_editing_tpu.models.encoders import backbones as jbackbones
 from stylegan3_editing_tpu.models.encoders import convert as jconvert
-from stylegan3_editing_tpu.models.encoders import restyle as jrestyle
-from stylegan3_editing_tpu.models.sg3 import SG3Config as JSG3Config
 from stylegan3_editing_tpu_torch.models.backbones import resnet
 from stylegan3_editing_tpu_torch.models.encoders import (INFERENCE_STAGE, ResNetBackboneEncoder,
                                                          ResNetProgressiveBackboneEncoder,
-                                                         RestyleNet,
-                                                         convert_restyle_encoder_state,
-                                                         get_average_image,
-                                                         run_restyle_iterations)
-from stylegan3_editing_tpu_torch.models.sg3 import SG3Config, load_jax_variables
-from test_torch_encoders import (ENCODER_TOL, IMAGE_ATOL, LAYER_TOL, TINY, check,
-                                 generator_variables, init_module, seeded, seeded_variables, t)
+                                                         convert_restyle_encoder_state)
+from stylegan3_editing_tpu_torch.models.sg3 import load_jax_variables
+from test_torch_encoders import (ENCODER_TOL, LAYER_TOL, check, init_module, seeded,
+                                 seeded_variables, t)
 
 torch.set_num_threads(1)
 
@@ -198,42 +191,3 @@ def test_convert_resnet_encoder_state_matches_jax():
                            torch.from_numpy(state["body.7.downsample.0.weight"]
                                             .transpose(2, 3, 1, 0)))
         assert torch.equal(m.trunk.relu.alpha, torch.from_numpy(state["relu.weight"]))
-
-
-@pytest.mark.parametrize("encoder_type", sorted(ENCODERS))
-def test_resnet_restyle_matches_jax(encoder_type):
-    """RestyleNet with each ResNet trunk on the 64² decoder: the average
-    image and two iterations with a landmarks transform (every decode the
-    dual one), the JAX package's in one `jax.jit`."""
-    n_styles = SG3Config(**TINY).num_ws
-    ev = resnet_encoder_variables(n_styles, seed=77)
-    gv = generator_variables(JSG3Config(**TINY), seed=78)
-    v = {"params": {"encoder": ev["params"], "decoder": gv["params"]},
-         "batch_stats": {"encoder": ev["batch_stats"]},
-         "buffers": {"decoder": gv["buffers"]}, "ema": {"decoder": gv["ema"]}}
-    jmodel = jrestyle.RestyleNet(decoder_cfg=JSG3Config(**TINY), encoder_type=encoder_type,
-                                 n_styles=n_styles)
-    tmodel = RestyleNet(SG3Config(**TINY), encoder_type, n_styles=n_styles, device="cpu")
-    load_jax_variables(tmodel, v)
-    assert tmodel.is_progressive == ("Progressive" in encoder_type)
-    x = seeded(1, 256, 256, 3, seed=79)
-    lt = np.eye(3, dtype=np.float32)
-    lt[0, 2] = 0.06
-
-    def jax_run(v, x, lt):
-        avg, lat = jrestyle.get_average_image(jmodel, v)
-        return avg, jrestyle.run_restyle_iterations(jmodel, v, x, avg, lat, n_iters=2,
-                                                    landmarks_transform=lt)
-
-    javg, ref = jax.jit(jax_run)(v, x, lt)
-    with torch.no_grad():
-        avg, lat = get_average_image(tmodel)
-        got = run_restyle_iterations(tmodel, t(x), avg, lat, n_iters=2,
-                                     landmarks_transform=t(lt))
-    check(avg, javg, IMAGE_ATOL, "average image", absolute=True)
-    for step, ((a, u, c), (ra, ru, rc)) in enumerate(zip(got, ref)):
-        check(c, rc, ENCODER_TOL, f"iteration {step} codes")
-        check(a, ra, IMAGE_ATOL, f"iteration {step} aligned image", absolute=True)
-        check(u, ru, IMAGE_ATOL, f"iteration {step} unaligned image", absolute=True)
-    assert not np.allclose(got[0][2].numpy(), got[1][2].numpy())
-

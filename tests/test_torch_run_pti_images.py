@@ -1,14 +1,15 @@
 """The port's ``run_pti_images`` CLI against the JAX package's, on the CPU.
 
-Both CLIs run as processes (the JAX one as ``python scripts/run_pti_images.py``,
-the port's as ``python -m`` with ``--device cpu``) from the same files: a
+The port's CLI runs as a process (``python -m`` with ``--device cpu``), and
+the JAX CLI's ``main`` (``scripts/run_pti_images.py``) in the test's own
+process meanwhile, with the same options, from the same files: a
 slim SG3-R generator (32², 5 layers of 32 channels, the JAX package's init
 with its zero leaves and EMAs seeded, written by the JAX package's
 `variables_to_npz`), a ``latents.npy`` of pivots and two PNGs. Each tunes
 for 2 steps, per image and with ``--shared_weights``. ``--lpips_lambda 0``
 and ``--lpips_threshold 0``: the two packages' LPIPS nets come from their
 own random inits (no released weights), so only the L2 term is shared
-between two processes, and no image converges (LPIPS parity with copied
+between the two CLIs, and no image converges (LPIPS parity with copied
 weights is held in `test_torch_pti.py`). Both write the same files; the
 tuned parameters agree within `test_torch_pti.py`'s 1e-4 and the PNGs
 within one level of 255 (a 1e-4 difference can round to the next level);
@@ -16,9 +17,11 @@ the shared mode renders with the generator's bf16 policy (as the JAX CLI),
 so its PNGs get the bf16 image tolerance on top.
 """
 
+import importlib.util
 import os
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import jax
@@ -39,9 +42,9 @@ from test_torch_encoders import generator_variables
 ROOT = Path(__file__).resolve().parents[1]
 PARAM_ATOL = 1e-4  # test_torch_pti.py's
 DECODER = dict(decoder_channel_base=512, decoder_channel_max=32, decoder_num_layers=4)
-COMMON = ["--output_size", "32", "--steps", "2", "--batch_size", "2", "--lpips_lambda", "0",
-          "--lpips_threshold", "0"] + [str(a) for kv in DECODER.items() for a in
-                                       (f"--{kv[0]}", kv[1])]
+JAX_OPTIONS = dict(output_size=32, steps=2, batch_size=2, lpips_lambda=0.0, lpips_threshold=0.0,
+                   **DECODER)
+COMMON = [str(a) for k, v in JAX_OPTIONS.items() for a in (f"--{k}", v)]
 
 
 @pytest.fixture(scope="module")
@@ -69,29 +72,47 @@ def inputs(tmp_path_factory):
 
 PORT_CLI = [sys.executable, "-m", "stylegan3_editing_tpu_torch.scripts.run_pti_images",
             "--device", "cpu"]
-JAX_CLI = [sys.executable, "scripts/run_pti_images.py"]
+MODES = ("per-image", "shared")
+
+
+def _jax_cli():
+    spec = importlib.util.spec_from_file_location(
+        "jax_run_pti_images", ROOT / "scripts" / "run_pti_images.py")
+    cli = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = cli  # its dataclass looks its module up there
+    spec.loader.exec_module(cli)
+    return cli
 
 
 @pytest.fixture(scope="module")
 def runs(inputs, tmp_path_factory):
-    """Both CLIs in both modes, started together (the JAX CLI spends its
-    time compiling); each test waits for its pair."""
+    """The port's CLI as one process a mode, both started first; meanwhile
+    the JAX CLI's `main` runs in this process, one thread a mode (its time
+    is mostly compiles), with the same options."""
     root = inputs[0]
     out = tmp_path_factory.mktemp("pti_runs")
+    paths = dict(images_path=root / "images", latents_path=root / "latents.npy",
+                 generator_path=root / "gen.npz")
     procs = {}
-    for mode in ("per-image", "shared"):
+    for mode in MODES:
         extra = ["--shared_weights", "true"] if mode == "shared" else []
-        for pkg, cmd in (("port", PORT_CLI), ("jax", JAX_CLI)):
-            args = cmd + ["--images_path", root / "images", "--latents_path",
-                          root / "latents.npy", "--generator_path", root / "gen.npz",
-                          "--exp_dir", out / mode / pkg, *COMMON, *extra]
-            procs[mode, pkg] = subprocess.Popen(
-                [str(a) for a in args], cwd=ROOT, stdout=subprocess.PIPE,
-                stderr=subprocess.PIPE, text=True, env={**os.environ, "JAX_PLATFORMS": "cpu"})
-    yield out, procs
-    for proc in procs.values():
-        proc.kill()
-        proc.communicate()
+        args = PORT_CLI + [a for k, v in paths.items() for a in (f"--{k}", v)] + [
+            "--exp_dir", out / mode / "port", *COMMON, *extra]
+        procs[mode] = subprocess.Popen(
+            [str(a) for a in args], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env={**os.environ, "JAX_PLATFORMS": "cpu"})
+    try:
+        jcli = _jax_cli()
+        with ThreadPoolExecutor(len(MODES)) as pool:
+            for run in [pool.submit(jcli.main, jcli.RunPTIOptions(
+                    exp_dir=str(out / mode / "jax"), shared_weights=mode == "shared",
+                    **{k: str(v) for k, v in paths.items()}, **JAX_OPTIONS)) for mode in MODES]:
+                run.result()
+        yield out, procs
+    finally:
+        for proc in procs.values():
+            proc.kill()
+            proc.communicate()
 
 
 def _wait(proc):
@@ -127,8 +148,7 @@ def _compare(out, jout, bf16):
 @pytest.mark.parametrize("mode", ["per-image", "shared"])
 def test_run_pti_images_cli_matches_jax(runs, mode):
     out, procs = runs
-    stdout = _wait(procs[mode, "port"])
-    _wait(procs[mode, "jax"])
+    stdout = _wait(procs[mode])
     shared = mode == "shared"
     expect = ["images/a.png", "images/b.png"] + (
         ["pti_video_model.npz"] if shared else ["a_model.npz", "b_model.npz"])
