@@ -97,7 +97,29 @@ Phases (any failure exits non-zero before the result lines):
    against a batch-1 render within the generator tests' bf16 image
    tolerance, which the unshifted left view must exceed; ms per expanded
    image and peak memory; then kernel #1 at that batch of 9 (each layer's
-   dtype) against its plain version and timed beside its bound.
+   dtype) against its plain version and timed beside its bound;
+12. StyleCLIP global directions and the video pipeline at full width, seeded
+   weights (SG3-R 1024 with its zero leaves seeded, CLIP ViT-B/32): (a)
+   `compute_s_statistics` at the CLI's defaults (100,000 z, batch 1024, psi
+   0.5, cutoff 8), its seconds, and its mean and std against a float64
+   two-pass recomputation on the card from the same samples
+   (`STATS_STD_TOL`); (b) `delta_i_c_batch` on the first batch of five
+   groups (`DELTA_GROUPS`), ms per channel and the full S's estimate, 14
+   launches a batch, one batch through the kernels against ``impl="ref"``
+   (`DELTA_COS_TOL`, which the +/- renders swapped must miss), and CLIP's
+   image features on the card against the CPU (`CLIP_TOL`); (c) a StyleCLIP
+   edit at batch 2 (a BPE vocabulary the script writes, a seeded
+   ``delta_i_c``): launches, the fp32 route through the kernels against
+   ``impl="ref"`` within `IMAGE_TOL`, which the unedited render must
+   exceed, the bf16 route's kernel and plain renders against the fp32 one,
+   ms, images/s, peak memory; (d) the video path on tensors: 12 frames of 256^2 with
+   seeded per-frame transforms, ReStyle e4e at batch 4 x 3 iterations with
+   the landmarks transforms, `postprocess_and_smooth_inversions` with 256
+   pixels a side, `InterFaceGANVideoEditor` at -2 and +2 with its smoothed
+   renders, `StyleCLIPVideoEditor`: launch counts, shapes, ms per frame of
+   each stage, peak memory; then kernel #1 at each new batch of the path
+   (16, 12, 9 in each layer's dtype, 8 in the fp32 route, 2) against its
+   plain version and timed beside its bound.
 
 PyTorch's TF32 flags stay at their defaults: matmuls run in fp32 by
 default, and the port holds its cuDNN convs to fp32 itself (`device.conv2d`;
@@ -984,6 +1006,359 @@ def checkpoint_phase(dev, card, layers, layer_call, kernel_call, irse_ms) -> flo
                       "fov expansion")[2]
 
 
+# Phase 12's tolerances, fixed before its first run.
+# S statistics against a float64 two-pass recomputation from the same samples:
+# the mean is a float32 cast of a float64 mean (2^-24 of it; 2^-23 of |mean| +
+# std covers a last-bit difference of a sample); the std is
+# sqrt(E[x^2] - float32(mean)^2 + 1e-12), whose float32 square of the mean moves
+# the variance by up to 2^-23 mean^2 (the std by 2^-24 mean^2 / std), the 1e-12
+# by up to 1e-6, and the float32 cast by 2^-24 std: 2^-22 (std + mean^2 / std)
+# + 1e-6 holds twice those.
+STATS_STD_TOL = (2 ** -22, 1e-6)
+# delta_i_c rows through the kernels vs impl="ref" at the same batch: unit
+# vectors, each the normalised difference of the CLIP features of two bf16
+# renders, which the two routes round apart by up to RANGE_RENDER_TOL of the
+# image; where a channel moves its renders little that turns the row by many
+# degrees (the CPU test of the CLIs reads cosines down to 0.95 between the two
+# packages' bf16 renders), so a row must keep a cosine of at least 0.9 (26 deg);
+# the +/- renders swapped give the row's negative (cosine -1).
+DELTA_COS_TOL = 0.9
+CLIP_TOL = 1e-4  # CLIP's image features, card vs CPU, of max |ref|: fp32 sum order
+STATS_SAMPLES, STATS_BATCH = 100_000, 1024  # styleclip_preprocess' defaults
+DELTA_GROUPS = ("input", "L0_36_1024", "L7_276_645", "L13_1024_64", "L14_1024_3")
+VIDEO_FRAMES, VIDEO_BATCH = 12, 4  # inference_on_video's batch size
+
+
+def bpe_vocabulary(path) -> None:
+    """A small BPE merges file in the released vocabulary's format."""
+    import gzip
+
+    merges = ["f a", "fa c", "fac e</w>", "s m", "sm i", "smi l", "smil i", "smili n",
+              "smilin g</w>", "p h", "ph o", "pho t", "phot o</w>", "o f</w>"]
+    with gzip.open(path, "wt", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "\n".join(merges) + "\n")
+
+
+def styleclip_video_phase(dev, card, layers, layer_call, kernel_call) -> float:
+    """Phase 12: StyleCLIP global directions and the video pipeline at full
+    width, seeded weights: (a) `compute_s_statistics` at the CLI's defaults
+    against a float64 recomputation on the card; (b) `delta_i_c_batch` on the
+    first 8 channels of five groups (16 renders and a CLIP encode each),
+    one batch through the kernels against ``impl="ref"``, and CLIP's image
+    features on the card against the CPU; (c) a StyleCLIP edit at batch 2;
+    (d) the video path on tensors: ReStyle with landmarks transforms, the
+    smoothed FOV renders, both video editors; then kernel #1 at every new
+    batch of the path (`layer_rows`). Returns #1's largest error there."""
+    import copy
+    import tempfile
+
+    from stylegan3_editing_tpu_torch.editing.interfacegan import RANGE_RENDER_TOL
+    from stylegan3_editing_tpu_torch.editing.styleclip_global import (
+        DEFAULT_TEMPLATES, StyleCLIPGlobalDirection, apply_delta_s, compute_s_statistics,
+        delta_i_c_batch, s_key_order)
+    from stylegan3_editing_tpu_torch.models.backbones.clip import (CLIP, SimpleTokenizer,
+                                                                   clip_preprocess_from_synth)
+    from stylegan3_editing_tpu_torch.models.encoders import (RestyleNet, get_average_image,
+                                                             run_restyle_iterations)
+    from stylegan3_editing_tpu_torch.models.sg3 import Generator, sg3_r_config
+    from stylegan3_editing_tpu_torch.ops import flrelu_cuda
+    from stylegan3_editing_tpu_torch.utils.common import generate_random_transform
+    from stylegan3_editing_tpu_torch.video.post_processing import (
+        postprocess_and_smooth_inversions, smooth_ws)
+    from stylegan3_editing_tpu_torch.video.video_editor import (InterFaceGANVideoEditor,
+                                                                StyleCLIPVideoEditor)
+
+    cfg = sg3_r_config(1024)
+    res, n_layers = cfg.img_resolution, len(layers)
+
+    def finite(*ts):
+        return all(bool(torch.isfinite(torch.as_tensor(t)).all()) for t in ts)
+
+    def sync_s(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # Seeded weights; the leaves that start at zero (the input transform's
+    # affine among them, which would hold its StyleSpace channels constant)
+    # drawn from a seed too, as the parity tests do.
+    G = Generator(cfg, device=dev, generator=torch.Generator().manual_seed(150))
+    gen = torch.Generator().manual_seed(151)
+    with torch.no_grad():
+        for p in G.parameters():
+            if not p.any():
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+        z = torch.randn((256, cfg.z_dim), generator=gen).to(dev)
+        G.mapping.w_avg.copy_(G.map(z)[:, 0].mean(0))
+
+    # (a) S statistics at the CLI's defaults, then the float64 recomputation
+    # from the same samples (all 100,000 kept on the card, two passes).
+    n_stats, batch = STATS_SAMPLES, STATS_BATCH
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    transform, s_mean, s_std, s_1k = compute_s_statistics(G, num_images=n_stats, batch=batch)
+    stats_s = sync_s(t0)
+    keys = list(s_mean)
+    channels = sum(v.shape[0] for v in s_mean.values())
+    rnd = np.random.RandomState(0)
+    samples = {k: [] for k in keys}
+    with torch.no_grad():
+        for start in range(0, n_stats, batch):
+            z = torch.as_tensor(rnd.randn(min(batch, n_stats - start), cfg.z_dim)
+                                .astype(np.float32), device=dev)
+            s = G.w2s(G.map(z, truncation_psi=0.5, truncation_cutoff=8))
+            for k in keys:
+                samples[k].append(s[k])
+    mean_err = std_err = 0.0
+    ok = keys == s_key_order(keys) and len(keys) == cfg.num_ws and keys[-1] == "input"
+    for k in keys:
+        x = torch.cat(samples.pop(k)).double()
+        m = x.mean(0)
+        sd = (x - m).square().mean(0).sqrt()
+        del x
+        got_m = torch.as_tensor(s_mean[k], device=dev).double()
+        got_sd = torch.as_tensor(s_std[k], device=dev).double()
+        m_tol = 2 ** -23 * (m.abs() + sd)
+        sd_tol = STATS_STD_TOL[0] * (sd + m.square() / sd) + STATS_STD_TOL[1]
+        mean_err = max(mean_err, float(((got_m - m).abs() / m_tol).max()))
+        std_err = max(std_err, float(((got_sd - sd).abs() / sd_tol).max()))
+    ok = ok and mean_err <= 1 and std_err <= 1 and s_1k["input"].shape == (1000, 4) and \
+        all(math.isfinite(v) for v in transform.values())
+    print(f"styleclip s statistics: {n_stats} z at batch {batch}, psi 0.5, cutoff 8: "
+          f"{stats_s:.3f} s ({len(keys)} groups, {channels} channels, float64 sums on the "
+          f"card); against a float64 two-pass recomputation from the same samples: worst "
+          f"mean error {mean_err:.3g} and worst std error {std_err:.3g} of their tolerances "
+          f"(mean 2^-23 (|mean| + std); std {STATS_STD_TOL[0]:.3g} (std + mean^2 / std) + "
+          f"{STATS_STD_TOL[1]:g}); transform {transform} {'ok' if ok else 'FAIL'} {card}")
+    if not ok:
+        raise SystemExit("S statistics disagree with the float64 recomputation")
+    del samples
+    torch.cuda.empty_cache()
+
+    # (b) delta_i_c batches: the first batch of 8 channels of five groups (the
+    # input transform has 4), each 2 renders a channel at 1024^2 (bf16 route)
+    # and a CLIP ViT-B/32 encode.
+    clip_model = CLIP(device=dev, generator=torch.Generator().manual_seed(152))
+    embed = clip_model.text_projection.shape[1]
+    base = {k: torch.as_tensor(v[:1], device=dev) for k, v in s_1k.items()}
+    first = {k: list(range(min(8, s_mean[k].shape[0]))) for k in DELTA_GROUPS}
+    with torch.inference_mode():
+        delta_i_c_batch(G, clip_model, base, s_mean, s_std, DELTA_GROUPS[1],
+                        first[DELTA_GROUPS[1]])  # warm-up
+        flrelu_cuda.reset_launches()
+        batch_ms = {}
+        for layer in DELTA_GROUPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d = delta_i_c_batch(G, clip_model, base, s_mean, s_std, layer, first[layer])
+            batch_ms[layer] = sync_s(t0) * 1e3
+            if not (tuple(d.shape) == (len(first[layer]), embed) and finite(d)
+                    and float((d.norm(dim=-1) - 1).abs().max()) < 1e-4):
+                raise SystemExit(f"delta_i_c {layer}: wrong shape or rows not unit vectors")
+        launches = dict(flrelu_cuda.launches)
+        per_channel = sum(batch_ms.values()) / sum(map(len, first.values()))
+        print(f"delta_i_c: the first batch of five groups ({', '.join(f'{k} {len(v)}' for k, v in first.items())} "
+              f"channels, 2 renders a channel at {res}^2 and a CLIP encode): "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in batch_ms.items())
+              + f"; {per_channel:.3f} ms per channel; the full S of {channels} channels: "
+              f"{channels * per_channel / 1e3:.1f} s per sample; launches {launches} {card}")
+        if launches != {"filtered_lrelu_fwd": n_layers * len(DELTA_GROUPS),
+                        "filtered_lrelu_bwd": 0, **NO_FIR}:
+            raise SystemExit("expected 14 forward launches per delta_i_c batch")
+        # One batch (4 channels of L7, 8 renders: the plain version at 16 would
+        # take ~11 s) through the kernels against impl="ref" at the same batch.
+        four = [0, 1, 2, 3]
+        got = delta_i_c_batch(G, clip_model, base, s_mean, s_std, DELTA_GROUPS[2], four)
+        ref = delta_i_c_batch(G, clip_model, base, s_mean, s_std, DELTA_GROUPS[2], four,
+                              impl="ref")
+        cos = (got * ref).sum(-1)
+        swapped = (-got * ref).sum(-1)  # the +/- renders swapped negate a row
+        neighbour = (got[1:] * ref[:-1]).sum(-1)
+        ok = float(cos.min()) >= DELTA_COS_TOL > float(swapped.max())
+        print(f"delta_i_c {DELTA_GROUPS[2]} channels 0-3 (batch 8), kernels vs impl='ref': "
+              f"cosines "
+              f"{[round(float(c), 5) for c in cos]} (tol >= {DELTA_COS_TOL}); the +/- renders "
+              f"swapped {float(swapped.max()):.4f}; the neighbouring channel's row "
+              f"{[round(float(c), 4) for c in neighbour]} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("delta_i_c through the kernels disagrees with impl='ref'")
+        # CLIP's image features on the card against the same module on the CPU.
+        z = torch.randn((16, cfg.z_dim), generator=torch.Generator().manual_seed(153)).to(dev)
+        x = clip_preprocess_from_synth(G(z, truncation_psi=0.7), clip_model.image_resolution)
+        on_card = clip_model.encode_image(x)
+        on_cpu = copy.deepcopy(clip_model).cpu().encode_image(x.cpu())
+        err = float((on_card.cpu() - on_cpu).abs().max())
+        scale = float(on_cpu.abs().max())
+        print(f"clip ViT-B/32 image features, batch 16 at 224^2, card vs CPU: max abs err "
+              f"{err:.3e} (tol {CLIP_TOL:g} of max |ref| {scale:.3g}) "
+              f"{'ok' if err <= CLIP_TOL * scale else 'FAIL'}")
+        if not err <= CLIP_TOL * scale:
+            raise SystemExit("CLIP's features on the card disagree with the CPU's")
+        del got, ref, x, on_card, on_cpu
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        bpe_vocabulary(tmp / "vocab.txt.gz")
+        tok = SimpleTokenizer(str(tmp / "vocab.txt.gz"))
+        rng = np.random.RandomState(154)
+        # A seeded delta_i_c (the full one takes minutes per sample, (b)).
+        d_ic = rng.randn(channels, embed).astype(np.float32)
+        d_ic /= np.linalg.norm(d_ic, axis=-1, keepdims=True)
+        gd = StyleCLIPGlobalDirection(d_ic, s_std, DEFAULT_TEMPLATES,
+                                      {k: v[None] for k, v in s_mean.items()}, clip_model, tok)
+
+        # (c) A StyleCLIP edit at batch 2: the CLI's alpha 2.0 and beta 0.11.
+        with torch.inference_mode():
+            ws = G.map(torch.randn((2, cfg.z_dim), generator=torch.Generator().manual_seed(155))
+                       .to(dev), truncation_psi=0.7)
+            all_s = G.w2s(ws)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            delta_s = gd.get_delta_s("face", "smiling face", 0.11)
+            delta_ms = sync_s(t0) * 1e3
+            flrelu_cuda.reset_launches()
+            edited = apply_delta_s(all_s, delta_s, 2.0)
+            img = G.synthesize(None, all_s=edited)
+            torch.cuda.synchronize()
+            launches = dict(flrelu_cuda.launches)
+            # The gate: the fp32 route through the kernels against impl="ref"
+            # (bit for bit in phases 4 and 10), which the unedited render must
+            # miss. The bf16 route's renders are printed against the fp32 one:
+            # the kernel rounds once a layer, the plain bf16 composition at
+            # every op, so they land apart by about what the bf16 policy
+            # costs each (the generator tests' 2 sqrt(8 L) 2^-9 model).
+            got32 = G.synthesize(None, all_s=edited, force_fp32=True)
+            ref32 = G.synthesize(None, all_s=edited, force_fp32=True, impl="ref")
+            plain32 = G.synthesize(None, all_s=all_s, force_fp32=True, impl="ref")
+            err = float((got32 - ref32).abs().max())
+            fault = float((plain32 - ref32).abs().max())
+            ref16 = G.synthesize(None, all_s=edited, impl="ref")
+            scale = float(ref32.abs().max())
+            bf16 = {name: float((x - ref32).abs().max()) / scale
+                    for name, x in (("kernels", img), ("plain", ref16))}
+            bf16["kernels vs plain"] = float((img - ref16).abs().max()) / scale
+            zeroed = sum(int((v == 0).sum()) for v in delta_s.values())
+            ok = (tuple(img.shape) == (2, res, res, 3) and finite(img) and launches ==
+                  {"filtered_lrelu_fwd": n_layers, "filtered_lrelu_bwd": 0, **NO_FIR}
+                  and err <= IMAGE_TOL < fault and tuple(delta_s) == tuple(s_mean))
+            print(f"styleclip edit, batch 2, alpha 2.0, beta 0.11 ({zeroed} of {channels} "
+                  f"channels below beta): launches {launches}; fp32 route, kernels vs "
+                  f"impl='ref': max abs err {err:.3e} (tol {IMAGE_TOL:g}); the unedited render "
+                  f"there {fault:.3e} (must exceed the tol); bf16 route (the edit's own) off the "
+                  f"fp32 render, of max |ref|: " + ", ".join(f"{k} {v:.4%}" for k, v in
+                                                           bf16.items())
+                  + f" {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit("StyleCLIP edit: launches, shapes, or the kernels disagree "
+                                 "with impl='ref'")
+            del got32, ref32, plain32, ref16
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            synth_ms = time_ms(lambda: G.synthesize(None, all_s=apply_delta_s(all_s, delta_s,
+                                                                            2.0)), 5)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"time styleclip edit: get_delta_s {delta_ms:.2f} ms (2 prompts x "
+              f"{len(DEFAULT_TEMPLATES)} templates through CLIP's text encoder, first call), "
+              f"apply_delta_s + synthesize(all_s) at batch 2 {synth_ms:.3f} ms, "
+              f"{2e3 / synth_ms:.3f} images/s, peak memory {peak:.3f} GiB {card}")
+
+        # (d) The video path on tensors: 12 frames of 256^2, per-frame transforms.
+        # e4e on IR-SE-50 as phase 10, decoding with (a)'s generator.
+        model = RestyleNet(cfg, "ProgressiveBackboneEncoder", n_styles=cfg.num_ws, device=dev,
+                           generator=torch.Generator().manual_seed(156))
+        seeded_batch_norms(model.encoder, 157)
+        model.decoder.load_state_dict(G.state_dict())
+        base_img = torch.rand((1, 256, 256, 3), generator=torch.Generator().manual_seed(158))
+        frames = (torch.cat([base_img.roll(2 * i, dims=2) for i in range(VIDEO_FRAMES)]) * 2
+                  - 1).to(dev)
+        rng = np.random.RandomState(159)
+        transforms = [generate_random_transform(0.02, 3.0, rng).astype(np.float32)
+                      for _ in range(VIDEO_FRAMES)]
+        lts = torch.as_tensor(np.stack(transforms), device=dev)
+        direction = rng.randn(1, 512).astype(np.float32)
+        direction /= np.linalg.norm(direction)
+        pad = res // 4
+        expansion = (pad, pad, pad, pad)
+        smoothed_n = VIDEO_FRAMES - 4
+        times = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flrelu_cuda.reset_launches()
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            avg, lat = get_average_image(model)
+            codes = torch.cat([run_restyle_iterations(
+                model, frames[b:b + VIDEO_BATCH], avg, lat, n_iters=RESTYLE_ITERS,
+                landmarks_transform=lts[b:b + VIDEO_BATCH], force_fp32=True)[-1][2]
+                for b in range(0, VIDEO_FRAMES, VIDEO_BATCH)])
+            times["restyle"] = sync_s(t0)
+            latents = codes.cpu().numpy()
+            t0 = time.perf_counter()
+            smoothed = postprocess_and_smooth_inversions(
+                {f"{i:04d}.png": c for i, c in enumerate(latents)}, transforms, model.decoder,
+                res, expansion)
+            times["smooth"] = sync_s(t0)
+            editor = InterFaceGANVideoEditor(model.decoder, res, tmp, {"age": direction},
+                                             expansion)
+            t0 = time.perf_counter()
+            img_s, img_e, lat_s, lat_e = editor.edit("age", -2, 2, latents, transforms)
+            times["edit"] = sync_s(t0)
+            smoothed_t = smooth_ws(np.stack(transforms))
+            t0 = time.perf_counter()
+            edit_frames = [editor.postprocess_and_smooth_edits(lat, smoothed_t)
+                           for lat in (lat_s, lat_e)]
+            times["edit smooth"] = sync_s(t0)
+            sc_editor = StyleCLIPVideoEditor(model.decoder, res, tmp, gd, expansion)
+            t0 = time.perf_counter()
+            sc_images, _ = sc_editor.edit("smiling face", 2.0, 0.11, latents,
+                                          landmarks_transforms=transforms)
+            times["styleclip"] = sync_s(t0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = dict(flrelu_cuda.launches)
+        decode_calls = 1 + (VIDEO_FRAMES // VIDEO_BATCH) * RESTYLE_ITERS
+        renders = smoothed_n + 2 + 2 * smoothed_n + 1
+        canvas = (res + 2 * pad, res + 2 * pad, 3)
+        ok = (launches == {"filtered_lrelu_fwd": n_layers * (decode_calls + renders),
+                           "filtered_lrelu_bwd": 0, **NO_FIR}
+              and latents.shape == (VIDEO_FRAMES, cfg.num_ws, 512) and finite(latents)
+              and len(smoothed) == smoothed_n
+              and all(f.shape == canvas and f.dtype == np.uint8 for f in smoothed)
+              and all(len(fs) == smoothed_n and all(f.shape == canvas for f in fs)
+                      for fs in edit_frames)
+              and tuple(img_s.shape) == tuple(sc_images.shape) == (VIDEO_FRAMES, res, res, 3)
+              and finite(img_s, img_e, sc_images)
+              and np.abs(lat_s - (latents - 2 * direction)).max() <= 1e-5
+              and np.abs(lat_e - (latents + 2 * direction)).max() <= 1e-5)
+        print(f"video: {VIDEO_FRAMES} frames of 256^2, ReStyle e4e at batch {VIDEO_BATCH} x "
+              f"{RESTYLE_ITERS} iterations with landmarks transforms (fp32 dual decode), "
+              f"{smoothed_n} smoothed {canvas[0]}^2 frames, InterFaceGAN -2/+2 and StyleCLIP "
+              f"edits of every frame: launches {launches} ({decode_calls} decode calls, "
+              f"{renders} renders) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("video path: launch counts, shapes, non-finite values or edit "
+                             "latents off their direction")
+        print(f"time video (first calls): ReStyle {1e3 * times['restyle'] / VIDEO_FRAMES:.2f} "
+              f"ms per input frame; smoothed FOV render {1e3 * times['smooth'] / smoothed_n:.2f} "
+              f"ms per output frame; InterFaceGAN edit (2 x batch {VIDEO_FRAMES}) "
+              f"{1e3 * times['edit'] / (2 * VIDEO_FRAMES):.2f} ms per edited frame, its smoothed "
+              f"renders {1e3 * times['edit smooth'] / (2 * smoothed_n):.2f} ms per output "
+              f"frame; StyleCLIP edit (batch {VIDEO_FRAMES}) "
+              f"{1e3 * times['styleclip'] / VIDEO_FRAMES:.2f} ms per frame; peak memory "
+              f"{peak:.3f} GiB {card}")
+    del model, G, clip_model, gd, smoothed, edit_frames, img_s, img_e, sc_images
+    torch.cuda.empty_cache()
+    # Kernel #1 at the batches this path gives it: delta_i_c's 16 renders, the
+    # video edits' 12 frames, the FOV render's 9 views (bf16 route); the video
+    # ReStyle's dual decode at batch 8 (fp32 route); the StyleCLIP edit's 2.
+    max_err = 0.0
+    for batch, fp32, what in ((16, False, "delta_i_c batch"), (12, False, "video edit"),
+                              (9, False, "video fov render"), (8, True, "video ReStyle dual "
+                                                                      "decode, fp32 route"),
+                              (2, False, "styleclip edit")):
+        max_err = max(max_err, layer_rows(dev, card, layers, layer_call, kernel_call, batch,
+                                          fp32, 1200 + 20 * batch, what)[2])
+    return max_err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card",
@@ -1484,6 +1859,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     now = time.perf_counter()
     print(f"elapsed: phase 11 {now - t11:.1f} s, the script {now - t_start:.1f} s")
+
+    # 12. StyleCLIP global directions and the video pipeline.
+    t12 = time.perf_counter()
+    max_err = max(max_err, styleclip_video_phase(dev, card, layers, layer_call, kernel_call))
+    torch.cuda.empty_cache()
+    now = time.perf_counter()
+    print(f"elapsed: phase 12 {now - t12:.1f} s, the script {now - t_start:.1f} s")
 
     def fir_entry(name, replaces):
         row = fir_rows[name, FIR_SHAPES[1], torch.bfloat16]

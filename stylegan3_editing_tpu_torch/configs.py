@@ -14,6 +14,12 @@ from pathlib import Path
 _MODELS = Path(os.environ.get("SG3TPU_MODELS", "/pretrained_models"))
 
 model_paths = {
+    "clip_vit_b32": _MODELS / "clip_vit_b32.pt",
+    "clip_bpe_vocab": _MODELS / "bpe_simple_vocab_16e6.txt.gz",
+    # Face alignment (the video pipeline).
+    "shape_predictor": _MODELS / "shape_predictor_68_face_landmarks.dat",
     # Editing assets.
+    "styleclip_delta_i_c": _MODELS / "styleclip" / "delta_i_c.npy",
+    "styleclip_s_stats": _MODELS / "styleclip" / "s_stats",
     "interfacegan_boundaries": _MODELS / "interfacegan",
 }

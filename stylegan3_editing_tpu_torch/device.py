@@ -5,12 +5,13 @@ no card and no explicit ``device="cpu"`` they raise: nothing carries on
 quietly on the CPU. A tensor's device also decides between a hand-written
 kernel and its plain version (`kernel_or_plain`). Every convolution of the
 port goes through `conv2d`, which keeps cuDNN in full fp32, forward and
-backward.
+backward; `fp32_matmul` does the same for the matmuls of a block.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Union
+from contextlib import contextmanager
+from typing import Iterator, List, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -71,6 +72,18 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] =
     """
     return _Conv2d.apply(x, weight, bias, _pair(stride), _pair(padding), _pair(dilation),
                          int(groups))
+
+
+@contextmanager
+def fp32_matmul() -> Iterator[None]:
+    """fp32 matmuls without TF32 inside the block (precision ``"highest"``),
+    whatever the caller set; the caller's precision comes back after it."""
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(before)
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

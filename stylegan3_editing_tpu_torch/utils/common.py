@@ -3,8 +3,9 @@
 Counterpart of the JAX package's `utils/common.py` (reference
 utils/common.py): `make_transform` (rotation + translation 3×3),
 `get_identity_transform` (inverted identity), `generate_random_transform`,
-`tensor2im` (NHWC) and `generate_mp4`. PIL is imported inside `tensor2im`
-and imageio inside `generate_mp4` only.
+`tensor2im` (NHWC) and `generate_mp4`. `to_uint8` is `tensor2im` without
+PIL (the card machine has none): the render paths use it. PIL is imported
+inside `tensor2im` and imageio inside `generate_mp4` only.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from pathlib import Path
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 
 def make_transform(translate: Tuple[float, float], angle: float) -> np.ndarray:
@@ -44,17 +46,27 @@ def generate_random_transform(translate: float = 0.3, rotate: float = 25,
     return np.linalg.inv(make_transform(t, angle))
 
 
-def tensor2im(var):
-    """One NHWC (or HWC) image in [-1, 1], numpy or torch → PIL image."""
-    from PIL import Image
-
+def to_uint8(var) -> np.ndarray:
+    """One NHWC (or HWC) image in [-1, 1], numpy or torch → HWC uint8 numpy:
+    ``clip((x + 1) / 2, 0, 1) · 255``, truncated. A tensor is scaled on its
+    own device in float32 (the same roundings as numpy's) and comes back as
+    uint8."""
     if hasattr(var, "detach"):
-        var = var.detach().float().cpu().numpy()
+        x = var.detach().float()
+        x = x[0] if x.ndim == 4 else x
+        return (((x + 1) / 2).clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
     arr = np.asarray(var)
     if arr.ndim == 4:
         arr = arr[0]
     arr = np.clip((arr + 1) / 2, 0, 1) * 255
-    return Image.fromarray(arr.astype("uint8"))
+    return arr.astype("uint8")
+
+
+def tensor2im(var):
+    """One NHWC (or HWC) image in [-1, 1], numpy or torch → PIL image."""
+    from PIL import Image
+
+    return Image.fromarray(to_uint8(var))
 
 
 def generate_mp4(out_name, images: Sequence, kwargs: dict) -> None:

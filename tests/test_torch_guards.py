@@ -385,3 +385,89 @@ def test_checkpoint_pti_and_fov_modules_import_without_jax_pillow_or_imageio():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_clip_convs_and_matmuls_run_in_full_fp32():
+    """CLIP's patch conv and every matmul of its image and text encoders see
+    TF32 off (cuDNN's flag, and matmul precision "highest") while the caller
+    allows TF32 for both, and the caller's settings come back after each
+    call."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from stylegan3_editing_tpu_torch.models.backbones.clip import CLIP
+
+    cudnn, aten = torch.backends.cudnn, torch.ops.aten
+    matmuls = {aten.mm.default, aten.bmm.default, aten.addmm.default, aten.baddbmm.default}
+    seen = []
+
+    class Recorder(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in matmuls or func is aten.convolution.default:
+                seen.append((func, torch.get_float32_matmul_precision(), cudnn.allow_tf32))
+            return func(*args, **(kwargs or {}))
+
+    model = CLIP(embed_dim=32, image_resolution=64, vision_width=64, vision_layers=1,
+                 text_width=32, text_layers=1, text_heads=2, device="cpu")
+    before = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("high")
+        with cudnn.flags(enabled=True, allow_tf32=True), Recorder(), torch.no_grad():
+            img = model.encode_image(torch.zeros((2, 64, 64, 3)))
+            assert (torch.get_float32_matmul_precision(), cudnn.allow_tf32) == ("high", True)
+            txt = model.encode_text(np.ones((2, 77), np.int32))
+            assert (torch.get_float32_matmul_precision(), cudnn.allow_tf32) == ("high", True)
+    finally:
+        torch.set_float32_matmul_precision(before)
+    assert img.shape == txt.shape == (2, 32)
+    ops = {f for f, _, _ in seen}
+    assert aten.convolution.default in ops and ops & matmuls, ops
+    assert all(not tf32 for f, _, tf32 in seen if f is aten.convolution.default), seen
+    assert all(p == "highest" for f, p, _ in seen if f in matmuls), seen
+
+
+def test_styleclip_and_video_modules_import_without_optional_packages():
+    """The CLIP, StyleCLIP, alignment and video modules and their four CLIs
+    import with Pillow, imageio, cv2, dlib, regex, scikit-learn and orbax
+    unavailable (the card machine has none of them) and leave JAX unloaded;
+    they load where a frame is read, aligned or written."""
+    blocked = ("PIL", "imageio", "cv2", "dlib", "regex", "sklearn", "orbax", "jax", "flax")
+    code = ("import sys, json\n"
+            f"for name in {blocked!r}:\n"
+            "    sys.modules[name] = None\n"
+            "import stylegan3_editing_tpu_torch.models.backbones.clip, "
+            "stylegan3_editing_tpu_torch.editing.styleclip_global, "
+            "stylegan3_editing_tpu_torch.utils.alignment_utils, "
+            "stylegan3_editing_tpu_torch.video.video_config, "
+            "stylegan3_editing_tpu_torch.video.video_handler, "
+            "stylegan3_editing_tpu_torch.video.post_processing, "
+            "stylegan3_editing_tpu_torch.video.video_editor, "
+            "stylegan3_editing_tpu_torch.scripts.styleclip_preprocess, "
+            "stylegan3_editing_tpu_torch.scripts.styleclip_edit, "
+            "stylegan3_editing_tpu_torch.scripts.inference_on_video, "
+            "stylegan3_editing_tpu_torch.scripts.compute_landmarks_transforms\n"
+            "print(json.dumps(sorted(m for m in sys.modules if sys.modules[m] is not None "
+            f"and m.split('.')[0] in {blocked + ('stylegan3_editing_tpu',)!r})))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("entry", ["clip", "styleclip_preprocess", "styleclip_edit",
+                                   "inference_on_video"])
+def test_styleclip_and_video_entry_points_raise_without_a_card(monkeypatch, entry, tmp_path):
+    """CLIP and the CLIs that run on the card raise without one unless they
+    are given ``device="cpu"``: nothing carries on quietly on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from stylegan3_editing_tpu_torch.models.backbones.clip import CLIP
+    from stylegan3_editing_tpu_torch.scripts import (inference_on_video, styleclip_edit,
+                                                     styleclip_preprocess)
+
+    call = {"clip": lambda: CLIP(vision_layers=1, text_layers=1),
+            "styleclip_preprocess": lambda: styleclip_preprocess.main(
+                ["--output_path", str(tmp_path)]),
+            "styleclip_edit": lambda: styleclip_edit.main(["--exp_dir", str(tmp_path)]),
+            "inference_on_video": lambda: inference_on_video.main(
+                ["--output_path", str(tmp_path)])}[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()

@@ -689,3 +689,51 @@ def test_expander_on_the_card(cuda_device):
         torch.testing.assert_close(canvas[:, 16:80, 16:80], plain, rtol=0, atol=tol)
         left = exp.views(ws, lt, 16, 16, 16, 16)["left"]
         assert float((left - plain).abs().max()) > tol
+
+
+@pytest.mark.gpu
+def test_styleclip_edit_through_the_kernels_matches_plain(cuda_device, tmp_path):
+    """A StyleCLIP global-direction edit on the card: a tiny CLIP and BPE
+    vocabulary, a seeded ``delta_i_c``, `get_delta_s`, `apply_delta_s` and
+    one `synthesize(all_s=…)` at batch 2 (one launch per filtered layer,
+    the bf16 route on the top layers); the same StyleSpace in the fp32
+    route through the kernels against ``impl="ref"`` within atol 1e-3
+    (`chip_smoke.py`'s fp32 image tolerance), which the unedited render
+    misses. (In bf16 the kernel rounds once a layer and the plain
+    composition at every op, so the two routes' renders differ by the bf16
+    policy's own error, held per layer elsewhere.)"""
+    import gzip
+
+    from stylegan3_editing_tpu_torch.editing.styleclip_global import (
+        DEFAULT_TEMPLATES, StyleCLIPGlobalDirection, apply_delta_s, s_key_order)
+    from stylegan3_editing_tpu_torch.models.backbones.clip import CLIP, SimpleTokenizer
+
+    cfg = sg3_r_config(64, **SLIM_R)
+    n_layers = sum(s.up_filter is not None for s in build_synthesis_layout(cfg).layers)
+    G = Generator(cfg, device=cuda_device)
+    clip = CLIP(embed_dim=32, image_resolution=64, vision_width=64, vision_layers=2,
+                text_width=64, text_layers=2, text_heads=1, device=cuda_device)
+    with gzip.open(tmp_path / "vocab.txt.gz", "wt", encoding="utf-8") as f:
+        f.write("#version: 0.2\nf a\nfa c\nfac e</w>\ns m\nsm i\nsmi l\nsmil i\nsmili n\n")
+    rng = np.random.RandomState(12)
+    with torch.no_grad():
+        ws = G.map(torch.from_numpy(rng.randn(2, cfg.z_dim).astype(np.float32)).to(cuda_device),
+                   truncation_psi=0.7)
+        all_s = G.w2s(ws)
+        keys = s_key_order(all_s)
+        s_std = {k: all_s[k].std(0).cpu().numpy() + 0.1 for k in keys}
+        s_avg = {k: all_s[k].mean(0, keepdim=True).cpu().numpy() for k in keys}
+        d_ic = rng.randn(sum(v.shape[-1] for v in s_std.values()), 32).astype(np.float32)
+        gd = StyleCLIPGlobalDirection(d_ic, s_std, DEFAULT_TEMPLATES, s_avg, clip,
+                                      SimpleTokenizer(str(tmp_path / "vocab.txt.gz")))
+        edited = apply_delta_s(all_s, gd.get_delta_s("face", "smiling face", 0.05), 2.0)
+        flrelu_cuda.reset_launches()
+        img = G.synthesize(None, all_s=edited)
+        torch.cuda.synchronize()
+        assert flrelu_cuda.launches["filtered_lrelu_fwd"] == n_layers
+        assert img.shape == (2, 64, 64, 3) and torch.isfinite(img).all()
+        got = G.synthesize(None, all_s=edited, force_fp32=True)
+        ref = G.synthesize(None, all_s=edited, force_fp32=True, impl="ref")
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-3)
+        plain = G.synthesize(None, all_s=all_s, force_fp32=True, impl="ref")
+        assert float((plain - ref).abs().max()) > 1e-3
