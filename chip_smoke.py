@@ -119,7 +119,30 @@ Phases (any failure exits non-zero before the result lines):
    renders, `StyleCLIPVideoEditor`: launch counts, shapes, ms per frame of
    each stage, peak memory; then kernel #1 at each new batch of the path
    (16, 12, 9 in each layer's dtype, 8 in the fp32 route, 2) against its
-   plain version and timed beside its bound.
+   plain version and timed beside its bound;
+13. the editing side's training at full width, seeded weights: (a)
+   `scripts.train_boundaries` up to the scores: 256 z at psi 0.7,
+   pseudo-aligned, each scorer (age on VGG16, pose_yaw on ResNet-50, Smiling
+   on the attribute head) on 4 batches of 8 bf16 renders at 1024^2 resized
+   to 224^2: 14 launches a batch, finite scores, one batch's scores card vs
+   CPU (`SCORER_TOL`), ms per sample and the CLI's 10,000-sample estimate
+   (the SVM fit needs scikit-learn, which the card's machine lacks); (b)
+   `MapperCoach` on SG3-R 1024 (LevelsMapper, CLIP ViT-B/32 at its
+   published widths, IR-SE-50, tokens of "a face with a smile" from a BPE
+   vocabulary the script writes) at the default lambdas, lr 0.5, Ranger,
+   batch 2, 12 steps: 28 forward and 14 backward launches a step, finite
+   losses, no gradient in the frozen networks; one step at batch 1 through
+   the kernels against ``impl="ref"`` (`MAPPER_LOSS_TOL`, each mapper
+   gradient within `GRAD_TOL` of its max); s/step, peak memory and one
+   traced step (#1, #2, the decoder, CLIP and IR-SE-50 on the device, the
+   idle share); (c) kernel #2's fp32 route at batch 2 on the 14 layers
+   against `filtered_lrelu_bwd_ref` (images 0 and 1), timed beside its plain
+   version and two bounds (all at the fp32 rate; the radial layers' dy up
+   pass at the tensor-core rate); (d) MTCNN's P-Net on a 1024^2 image's
+   scale pyramid and its R- and O-Nets at batch 64, and
+   `calc_id_loss_parallel`'s IR-101 at batch 4, card vs CPU within
+   `FP32_TOL` (detect and align resize with Pillow, which the card's machine
+   lacks; they run in the CPU tests).
 
 PyTorch's TF32 flags stay at their defaults: matmuls run in fp32 by
 default, and the port holds its cuDNN convs to fp32 itself (`device.conv2d`;
@@ -310,15 +333,18 @@ def layer_rows(dev, card, layers, layer_call, kernel_call, batch, fp32, seed, wh
     return total, bound, max_err
 
 
-def device_trace(fn, model=None):
+def device_trace(fn, model=None, ranges=()):
     """One call of ``fn`` under `torch.profiler`, read from the trace's kernel
     events: the wall time, the device's busy time (the union of its kernels)
     and its idle share between the first kernel's start and the last one's
-    end, and kernel #1's launches and device time. With ``model`` (a
-    `RestyleNet`) each ``encode`` and ``decode`` call is a range, and a
-    kernel is charged to the range its launch call fell in: the ranges' host
-    time, their kernels' device time and the idle share of those kernels'
-    spans. Returns None when the trace holds no kernel."""
+    end, and the launches and device time of kernels #1 and #2. Each entry
+    ``(label, obj, attr)`` of ``ranges`` makes each call of ``obj.attr`` a
+    range named ``label`` (``obj`` None: ``fn`` opens the range itself with
+    `record_function`); with ``model`` (a `RestyleNet`) its ``encode`` and
+    ``decode`` are ranges. A kernel is charged to the range its launch call
+    fell in: the ranges' host time, their kernels' device time and the idle
+    share of those kernels' spans. Returns None when the trace holds no
+    kernel."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -328,9 +354,12 @@ def device_trace(fn, model=None):
                 return method(*args, **kwargs)
         return call
 
-    names = ("encode", "decode") if model is not None else ()
-    for name in names:
-        setattr(model, name, annotated(name, getattr(model, name)))
+    ranges = list(ranges) + ([("encode", model, "encode"), ("decode", model, "decode")]
+                             if model is not None else [])
+    names = [label for label, _, _ in ranges]
+    for label, obj, attr in ranges:
+        if obj is not None:
+            setattr(obj, attr, annotated(label, getattr(obj, attr)))
     try:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -339,8 +368,9 @@ def device_trace(fn, model=None):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
-        for name in names:
-            delattr(model, name)  # the instance attribute: the method shows again
+        for _, obj, attr in ranges:
+            if obj is not None:
+                delattr(obj, attr)  # the instance attribute: the method shows again
     with tempfile.TemporaryDirectory() as d:
         path = Path(d) / "trace.json"
         prof.export_chrome_trace(str(path))
@@ -361,9 +391,11 @@ def device_trace(fn, model=None):
 
     busy, span = busy_span(kernels)
     fwd = [k for k in kernels if "flrelu_fwd_kernel" in k["name"]]
+    bwd = [k for k in kernels if "flrelu_bwd_kernel" in k["name"]]
     out = {"wall_ms": wall * 1e3, "busy_ms": busy / 1e3, "span_ms": span / 1e3,
            "idle": 1 - busy / span, "kernels": len(kernels), "flrelu_launches": len(fwd),
-           "flrelu_ms": sum(k["dur"] for k in fwd) / 1e3}
+           "flrelu_ms": sum(k["dur"] for k in fwd) / 1e3, "flrelu_bwd_launches": len(bwd),
+           "flrelu_bwd_ms": sum(k["dur"] for k in bwd) / 1e3, "ranges": names}
     launched = {e["args"]["correlation"]: e["ts"] for e in events
                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
                 and "correlation" in e.get("args", {})}
@@ -386,18 +418,19 @@ def print_trace(what, t, card):
         print(f"trace {what}: the profiler recorded no kernel on the device; in-path device "
               f"times not measured")
         return
+    bwd = (f"; kernel #2 {t['flrelu_bwd_launches']} launches, {t['flrelu_bwd_ms']:.4f} ms on "
+           f"the device" if t["flrelu_bwd_launches"] else "")
     print(f"trace {what}: wall {t['wall_ms']:.4f} ms under the profiler; {t['kernels']} "
           f"kernels, device busy {t['busy_ms']:.4f} ms of the {t['span_ms']:.4f} ms from the "
           f"first kernel's start to the last one's end (idle {100 * t['idle']:.2f} %); kernel "
           f"#1 {t['flrelu_launches']} launches, {t['flrelu_ms']:.4f} ms on the device "
           f"({100 * t['flrelu_ms'] / t['busy_ms']:.2f} % of busy, "
-          f"{100 * t['flrelu_ms'] / t['span_ms']:.2f} % of the span) {card}")
-    for name in ("encode", "decode"):
-        if name in t:
-            r = t[name]
-            print(f"trace {what}, {name}: {r['calls']} calls, host {r['host_ms']:.4f} ms, "
-                  f"{r['kernels']} kernels launched inside, {r['device_ms']:.4f} ms on the "
-                  f"device, idle {100 * r['idle']:.2f} % of their spans {card}")
+          f"{100 * t['flrelu_ms'] / t['span_ms']:.2f} % of the span){bwd} {card}")
+    for name in t["ranges"]:
+        r = t[name]
+        print(f"trace {what}, {name}: {r['calls']} calls, host {r['host_ms']:.4f} ms, "
+              f"{r['kernels']} kernels launched inside, {r['device_ms']:.4f} ms on the "
+              f"device, idle {100 * r['idle']:.2f} % of their spans {card}")
 
 
 def restyle_phase(dev, card, layers, layer_call, kernel_call):
@@ -1359,6 +1392,326 @@ def styleclip_video_phase(dev, card, layers, layer_call, kernel_call) -> float:
     return max_err
 
 
+SCORER_TOL = 1e-4  # a scorer's outputs, card vs CPU, of max |ref|: fp32 sum order (cuDNN, fp32)
+BOUNDARY_SAMPLES, BOUNDARY_BATCHES, BOUNDARY_BATCH = 256, 4, 8  # one chunk of z; the CLI's batch
+BOUNDARY_ESTIMATE = 10_000  # the CLI's default n_samples
+SCORERS = ("age", "pose_yaw", "Smiling")  # VGG16, ResNet-50 + bin heads, ResNet-50 + 40 logits
+MAPPER_STEPS, MAPPER_BATCH = 12, 2  # past RAdam's switch at step 6 and two lookahead syncs
+# The mapper's losses through the kernels vs impl="ref": relative, plus 4 ulp of 1
+# (the CLIP and ID losses are 1 - a cosine near 1, which cancels to its rounding).
+MAPPER_LOSS_TOL = (1e-4, 2.0 ** -20)
+MTCNN_BATCH, ID_BATCH = 64, 4
+
+
+def editing_training_phase(dev, card, layers, bwd_kernel_call, bwd_plain_call):
+    """Phase 13: the editing side's training at full width, seeded weights:
+    (a) `train_boundaries` up to the scores (256 z at psi 0.7, pseudo-aligned;
+    each scorer on 4 batches of 8 bf16 renders, one batch card vs CPU); (b)
+    `MapperCoach` at SG3-R 1024 (LevelsMapper, CLIP ViT-B/32, IR-SE-50,
+    Ranger, batch 2, 12 steps; one step through the kernels against
+    ``impl="ref"``; a traced step); (c) kernel #2's fp32 route at batch 2 on
+    the 14 layers, against `filtered_lrelu_bwd_ref` and timed beside its
+    bounds; (d) MTCNN's nets on a 1024^2 image's scale pyramid and at batch
+    64, and `calc_id_loss_parallel`'s IR-101 at batch 4, card vs CPU.
+    Returns #2's largest error."""
+    import copy
+    import tempfile
+
+    import torch.nn.functional as F
+    from torch.profiler import record_function
+
+    from stylegan3_editing_tpu_torch.editing.styleclip_mapper import (MapperCoach,
+                                                                     MapperTrainOptions)
+    from stylegan3_editing_tpu_torch.models.backbones.clip import CLIP, SimpleTokenizer
+    from stylegan3_editing_tpu_torch.models.backbones.irse import IRSEBackbone
+    from stylegan3_editing_tpu_torch.models.mtcnn import MTCNN
+    from stylegan3_editing_tpu_torch.models.sg3 import Generator, sg3_r_config
+    from stylegan3_editing_tpu_torch.ops import flrelu_cuda
+    from stylegan3_editing_tpu_torch.scripts import calc_id_loss_parallel, train_boundaries
+
+    cfg = sg3_r_config(1024)
+    n_layers = len(layers)
+
+    def finite(*ts):
+        return all(bool(torch.isfinite(torch.as_tensor(t)).all()) for t in ts)
+
+    def sync_s(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def close(got, ref, tol):
+        err = float((got.float().cpu() - ref.float().cpu()).abs().max())
+        return err, float(ref.abs().max()), err <= tol * float(ref.abs().max())
+
+    G = Generator(cfg, device=dev, generator=torch.Generator().manual_seed(160))
+    with torch.no_grad():
+        z = torch.randn((256, cfg.z_dim), generator=torch.Generator().manual_seed(161)).to(dev)
+        G.mapping.w_avg.copy_(G.map(z)[:, 0].mean(0))
+
+    # (a) train_boundaries up to the scores: one chunk of 256 z, pseudo-aligned.
+    opts = train_boundaries.BoundaryOptions(n_samples=BOUNDARY_SAMPLES, batch_size=BOUNDARY_BATCH,
+                                            truncation_psi=0.7, pseudo_align=True, seed=162,
+                                            device="cuda")
+    t0 = time.perf_counter()
+    ws = train_boundaries.sample_ws(G, opts)
+    sample_s = sync_s(t0)
+    if not (tuple(ws.shape) == (BOUNDARY_SAMPLES, cfg.num_ws, 512) and finite(ws)
+            and bool((ws[:, 0] == G.mapping.w_avg).all())):
+        raise SystemExit("train_boundaries: sampled latents have the wrong shape, are not "
+                         "finite or not pseudo-aligned")
+    n_scored = BOUNDARY_BATCHES * BOUNDARY_BATCH
+    for attribute in SCORERS:
+        opts.attribute = attribute
+        scorer, select = train_boundaries.scorer_for(attribute, dev)
+        with torch.no_grad():
+            train_boundaries.score_ws(G, scorer, select, ws[:BOUNDARY_BATCH],
+                                      BOUNDARY_BATCH)  # warm-up
+            flrelu_cuda.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scores = train_boundaries.score_ws(G, scorer, select, ws[:n_scored], BOUNDARY_BATCH)
+            secs = sync_s(t0)
+            launches = dict(flrelu_cuda.launches)
+            # One batch's scores on the card against the same scorer on the CPU,
+            # on the card's renders.
+            imgs = G.synthesize(ws[:BOUNDARY_BATCH])
+            on_card = select(scorer(imgs))
+            on_cpu = select(copy.deepcopy(scorer).cpu()(imgs.cpu()))
+            err, scale, ok = close(on_card, on_cpu, SCORER_TOL)
+            del imgs
+        ok = ok and launches == {"filtered_lrelu_fwd": n_layers * BOUNDARY_BATCHES,
+                                 "filtered_lrelu_bwd": 0, **NO_FIR} \
+            and scores.shape == (n_scored, 1) and finite(scores)
+        per_sample = secs * 1e3 / n_scored
+        print(f"train_boundaries {attribute} ({type(scorer).__name__}): {BOUNDARY_BATCHES} "
+              f"batches of {BOUNDARY_BATCH} bf16 renders at {cfg.img_resolution}^2, resized to "
+              f"224^2 and scored: launches {launches}; scores {scores[:3, 0].round(4).tolist()}..., "
+              f"card vs CPU on one batch: max abs err {err:.3e} (tol {SCORER_TOL:g} of max |ref| "
+              f"{scale:.4g}) {'ok' if ok else 'FAIL'}")
+        print(f"time train_boundaries {attribute}: {per_sample:.3f} ms per sample (render and "
+              f"score); sampling {BOUNDARY_SAMPLES} z {1e3 * sample_s:.2f} ms; the CLI's "
+              f"{BOUNDARY_ESTIMATE} samples: {BOUNDARY_ESTIMATE * per_sample / 1e3:.1f} s before "
+              f"the fit {card}")
+        if not ok:
+            raise SystemExit(f"train_boundaries {attribute}: launches, scores or the card vs "
+                             f"CPU check failed")
+        del scorer
+        torch.cuda.empty_cache()
+    print("train_boundaries: the SVM fit (train_boundary, scikit-learn on the host) runs where "
+          "scikit-learn is installed; the card's machine has none, so it is not run here")
+
+    # (b) MapperCoach at SG3-R 1024: LevelsMapper, CLIP ViT-B/32, IR-SE-50.
+    clip_model = CLIP(device=dev, generator=torch.Generator().manual_seed(163))
+    facenet = IRSEBackbone(112, 50, "ir_se", drop_ratio=0.6,
+                           generator=torch.Generator().manual_seed(164)).to(dev)
+    seeded_batch_norms(facenet, 165)
+    mopts = MapperTrainOptions()
+    with tempfile.TemporaryDirectory() as tmp:
+        bpe_vocabulary(Path(tmp) / "vocab.txt.gz")
+        tokens = SimpleTokenizer(str(Path(tmp) / "vocab.txt.gz")).tokenize([mopts.description])
+    coach = MapperCoach(mopts, cfg, decoder=G, clip_model=clip_model, facenet=facenet,
+                        text_tokens=tokens, device=dev)
+    gen = torch.Generator().manual_seed(166)
+    with torch.no_grad():
+        batches = [G.map(torch.randn((MAPPER_BATCH, cfg.z_dim), generator=gen).to(dev),
+                         truncation_psi=0.7) for _ in range(MAPPER_STEPS)]
+    history, step_s = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in batches:
+        flrelu_cuda.reset_launches()
+        t0 = time.perf_counter()
+        history.append(coach.train_step(w))
+        step_s.append(sync_s(t0))
+        if dict(flrelu_cuda.launches) != {"filtered_lrelu_fwd": 2 * n_layers,
+                                          "filtered_lrelu_bwd": n_layers, **NO_FIR}:
+            raise SystemExit(f"mapper step {len(history)}: expected {2 * n_layers} forward and "
+                             f"{n_layers} backward launches, saw {dict(flrelu_cuda.launches)}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    frozen_grads = sum(p.grad is not None for m in (G, clip_model, facenet)
+                       for p in m.parameters())
+    ok = (all(math.isfinite(v) for h in history for v in h.values()) and frozen_grads == 0
+          and coach.optimizer.param_groups[0]["step"] == MAPPER_STEPS
+          and all(p in coach.optimizer.state for p in coach.net.mapper.parameters()))
+    print(f"mapper coach, SG3-R 1024, batch {MAPPER_BATCH}, {MAPPER_STEPS} steps (Ranger lr "
+          f"{mopts.learning_rate}, lambdas clip {mopts.clip_lambda}, id {mopts.id_lambda}, "
+          f"latent l2 {mopts.latent_l2_lambda}; '{mopts.description}'): {2 * n_layers} forward "
+          f"and {n_layers} backward launches a step; loss {history[0]['loss']:.6f} -> "
+          f"{history[-1]['loss']:.6f} (clip {history[0]['loss_clip']:.6f} -> "
+          f"{history[-1]['loss_clip']:.6f}, id {history[0]['loss_id']:.3e} -> "
+          f"{history[-1]['loss_id']:.3e}, l2 {history[0]['loss_l2_latent']:.3e} -> "
+          f"{history[-1]['loss_l2_latent']:.3e}); frozen networks' parameters with a "
+          f"gradient: {frozen_grads} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("mapper coach: non-finite losses, a frozen network got gradients, or "
+                         "Ranger did not step")
+    steady = step_s[1:]
+    print(f"time mapper step: {sum(steady) / len(steady):.4f} s per step (steps 2-"
+          f"{MAPPER_STEPS}; {min(steady):.4f}-{max(steady):.4f}; the first {step_s[0]:.4f} s), "
+          f"peak memory {peak:.3f} GiB {card}")
+
+    # One step through the kernels against impl="ref" at batch 1, as phase 7's
+    # PTI step: the plain composition keeps each layer's up-sampled
+    # intermediates for the backward (by their shapes, 5.9 GB a tensor on L10
+    # at batch 2). The losses, and every mapper gradient.
+    w1 = batches[0][:1]
+    runs = {impl: coach.loss_and_grads(w1, impl=impl) for impl in ("auto", "ref")}
+    (m_k, g_k), (m_r, g_r) = runs["auto"], runs["ref"]
+    loss_ok = all(abs(m_k[k] - v) <= MAPPER_LOSS_TOL[0] * abs(v) + MAPPER_LOSS_TOL[1]
+                  for k, v in m_r.items())
+    worst = max((float((g_k[k] - g).abs().max()) / float(g.abs().max()), k)
+                for k, g in g_r.items() if float(g.abs().max()) > 0)
+    print(f"mapper step, batch 1, kernels vs impl='ref': losses "
+          + ", ".join(f"{k} {m_k[k]:.6g} / {v:.6g}" for k, v in m_r.items())
+          + f" (tol {MAPPER_LOSS_TOL[0]:g} relative + 2^-20); {len(g_r)} mapper tensors, worst "
+          f"max abs err / max |grad| {worst[0]:.3e} on {worst[1]} (tol {GRAD_TOL:g}) "
+          f"{'ok' if loss_ok and worst[0] <= GRAD_TOL else 'FAIL'}")
+    if not (loss_ok and worst[0] <= GRAD_TOL):
+        raise SystemExit("mapper step through the kernels disagrees with impl='ref'")
+    del runs, g_k, g_r
+    torch.cuda.empty_cache()
+
+    # One traced step: #1, #2, CLIP and IR-SE-50 on the device, the idle share.
+    w = batches[-1]
+
+    def traced_step():
+        coach.optimizer.zero_grad(set_to_none=True)
+        with record_function("forward"):
+            loss, _ = coach.loss(w)
+        with record_function("backward"):
+            loss.backward()
+        with record_function("ranger"):
+            coach.optimizer.step()
+
+    print_trace("mapper step, batch 2", device_trace(traced_step, ranges=[
+        ("forward", None, None), ("backward", None, None), ("ranger", None, None),
+        ("decoder synthesize (x and x_orig)", G, "synthesize"),
+        ("clip (forward)", coach.clip_loss, "forward"),
+        ("ir-se-50 (forward)", coach.id_loss, "extract_feats")]), card)
+    if any(p.grad is not None for p in G.parameters()):
+        raise SystemExit("the traced mapper step computed gradients of the generator's weights")
+    del coach, clip_model, facenet, batches, w, w1
+    torch.cuda.empty_cache()
+
+    # (c) Kernel #2's fp32 route at batch 2, as the mapper's step runs it.
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, tc_bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
+    max_err = 0.0
+    with torch.no_grad():
+        for i, s in enumerate(layers):
+            gen = torch.Generator(device=dev).manual_seed(1300 + i)
+            x = torch.randn((2, s.in_size[1], s.in_size[0], s.out_channels), generator=gen,
+                            device=dev) * 60
+            b = torch.randn((s.out_channels,), generator=gen, device=dev)
+            dy = torch.randn((2, s.out_size[1], s.out_size[0], s.out_channels), generator=gen,
+                             device=dev)
+            dx = bwd_kernel_call(s, dy, x, b)
+            for n in (0, 1):
+                ref = bwd_plain_call(s, dy[n:n + 1], x[n:n + 1], b)
+                err = (dx[n:n + 1] - ref).abs()
+                atol, rtol = FP32_TOL
+                if not bool((err <= atol + rtol * ref.abs()).all()):
+                    raise SystemExit(f"backward kernel, fp32 route, disagrees with the plain "
+                                     f"version on {s.name}, batch 2, image {n}")
+                max_err = max(max_err, float(err.max()))
+                del ref, err
+            nbytes, dy_up_flops, other_flops = flrelu_bwd_work(
+                tuple(x.shape), tuple(dy.shape), s.up_factor, len(s.up_filter),
+                s.down_filter.shape[0], s.down_filter.ndim == 2, x.element_size())
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = (dy_up_flops + other_flops) / FP32_FLOPS * 1e3
+            # The tensor-core route's bound (its dy up pass at the bf16 rate) where
+            # it applies: the radial layers; the fp32 route itself runs on the CUDA cores.
+            tc_ops_ms = (other_flops / FP32_FLOPS + dy_up_flops / TC_FLOPS) * 1e3 \
+                if s.down_filter.ndim == 2 else ops_ms
+            k_ms = time_ms(lambda: bwd_kernel_call(s, dy, x, b), 10)
+
+            def plain_batch():
+                for n in range(2):
+                    bwd_plain_call(s, dy[n:n + 1], x[n:n + 1], b)
+
+            p_ms = time_ms(plain_batch, 2, warmup=1)
+            bound, tc_bound = max(bytes_ms, ops_ms), max(bytes_ms, tc_ops_ms)
+            for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", bound),
+                           ("tc_bound_ms", tc_bound), ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
+                tot[key] += v
+            print(f"time bwd {s.name} fp32 route batch 2 (dy up pass on the CUDA cores): kernel "
+                  f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound:.4f} ms at the fp32 rate "
+                  f"({'operations' if ops_ms > bytes_ms else 'bytes'}: {nbytes / 1e6:.1f} MB, "
+                  f"{(dy_up_flops + other_flops) / 1e9:.2f} GFLOP of which dy up pass "
+                  f"{dy_up_flops / 1e9:.2f}), {tc_bound:.4f} ms with the dy up pass at the "
+                  f"tensor-core rate {card}")
+            del x, b, dy, dx
+            torch.cuda.empty_cache()
+    print(f"kernel #2, fp32 route, batch 2: {n_layers} layers against the plain version ok "
+          f"(max abs err {max_err:.3e}); {tot['ms']:.4f} ms a step, plain {tot['plain_ms']:.4f} "
+          f"ms, bound {tot['bound_ms']:.4f} ms at the fp32 rate, {tot['tc_bound_ms']:.4f} ms with "
+          f"the radial layers' dy up pass at the tensor-core rate {card}")
+
+    # (d) MTCNN's nets and the ID metric's IR-101, card vs CPU.
+    mt = MTCNN(device=dev, generator=torch.Generator().manual_seed(167))
+    mt_cpu = {name: copy.deepcopy(getattr(mt, name)).cpu() for name in ("pnet", "rnet", "onet")}
+    img = torch.rand((1, 3, 1024, 1024), generator=torch.Generator().manual_seed(168)) * 255
+    scales, length, m = [], 1024 * 12 / 20.0, 12 / 20.0
+    while length > 12:  # MTCNN.detect's pyramid at min_face_size 20
+        scales.append(m * 0.707 ** len(scales))
+        length *= 0.707
+    worst, t_ms = 0.0, 0.0
+    with torch.no_grad():
+        for scale in scales:
+            side = int(math.ceil(1024 * scale))
+            x = ((F.interpolate(img, size=(side, side), mode="bilinear", align_corners=False)
+                  - 127.5) * 0.0078125).permute(0, 2, 3, 1).contiguous()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = mt.pnet(x.to(dev))
+            t_ms += sync_s(t0) * 1e3
+            for a, r in zip(got, mt_cpu["pnet"](x)):
+                err = (a.cpu() - r).abs()
+                worst = max(worst, float(err.max()))
+                if not bool((err <= FP32_TOL[0] + FP32_TOL[1] * r.abs()).all()):
+                    raise SystemExit(f"MTCNN P-Net on the card disagrees with the CPU at {side}^2")
+        errs = {"pnet": worst}
+        gen = torch.Generator().manual_seed(169)
+        for name, side in (("rnet", 24), ("onet", 48)):
+            x = torch.rand((MTCNN_BATCH, side, side, 3), generator=gen) * 2 - 1
+            outs = zip(getattr(mt, name)(x.to(dev)), mt_cpu[name](x))
+            errs[name] = 0.0
+            for a, r in outs:
+                err = (a.cpu() - r).abs()
+                errs[name] = max(errs[name], float(err.max()))
+                if not bool((err <= FP32_TOL[0] + FP32_TOL[1] * r.abs()).all()):
+                    raise SystemExit(f"MTCNN {name} on the card disagrees with the CPU")
+    print(f"mtcnn: P-Net on a 1024^2 image's {len(scales)}-scale pyramid "
+          f"({', '.join(str(int(math.ceil(1024 * s))) for s in scales)}), {t_ms:.2f} ms on the "
+          f"card; R-Net and O-Net at batch {MTCNN_BATCH}: card vs CPU max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (tol atol {FP32_TOL[0]:g} + rtol {FP32_TOL[1]:g}·|ref|) ok; detect and align "
+          f"resize with Pillow, which the card's machine lacks: they run in the CPU tests {card}")
+    id_opts = calc_id_loss_parallel.IDLossCalcOptions(device="cuda")
+    net = calc_id_loss_parallel.build_facenet(id_opts, dev)
+    seeded_batch_norms(net, 170)
+    faces = torch.rand((ID_BATCH, 256, 256, 3), generator=torch.Generator().manual_seed(171)) * 2 - 1
+    with torch.no_grad():
+        calc_id_loss_parallel.embed_center_crop(net, faces.to(dev))  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on_card = calc_id_loss_parallel.embed_center_crop(net, faces.to(dev))
+        id_ms = sync_s(t0) * 1e3
+        on_cpu = calc_id_loss_parallel.embed_center_crop(copy.deepcopy(net).cpu(), faces)
+    err = (on_card.cpu() - on_cpu).abs()
+    ok = bool((err <= FP32_TOL[0] + FP32_TOL[1] * on_cpu.abs()).all()) and \
+        tuple(on_card.shape) == (ID_BATCH, 512) and finite(on_card)
+    print(f"calc_id_loss_parallel IR-101 (ir, 100 layers) at batch {ID_BATCH}, centre crop of "
+          f"256^2 pooled to 112^2: card vs CPU max abs err {float(err.max()):.3e} (tol atol "
+          f"{FP32_TOL[0]:g} + rtol {FP32_TOL[1]:g}·|ref|) {'ok' if ok else 'FAIL'}; "
+          f"{id_ms:.3f} ms a batch {card}")
+    if not ok:
+        raise SystemExit("the ID metric's IR-101 on the card disagrees with the CPU")
+    del G, mt, mt_cpu, net
+    torch.cuda.empty_cache()
+    return max_err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card",
@@ -1866,6 +2219,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     now = time.perf_counter()
     print(f"elapsed: phase 12 {now - t12:.1f} s, the script {now - t_start:.1f} s")
+
+    # 13. The editing side's training: boundary scores, the StyleCLIP mapper, MTCNN.
+    t13 = time.perf_counter()
+    bwd_max_err = max(bwd_max_err, editing_training_phase(dev, card, layers, bwd_kernel_call,
+                                                          bwd_plain_call))
+    torch.cuda.empty_cache()
+    now = time.perf_counter()
+    print(f"elapsed: phase 13 {now - t13:.1f} s, the script {now - t_start:.1f} s")
 
     def fir_entry(name, replaces):
         row = fir_rows[name, FIR_SHAPES[1], torch.bfloat16]

@@ -6,8 +6,11 @@ so `models.sg3.load_jax_variables` fills them from a flax variable tree.
 
 from .alexnet import AlexNetFeatures, convert_alexnet_state
 from .irse import IRSEBackbone, IRSEBody, convert_irse_state, get_blocks
-from .resnet import BasicBlock, ResNet34Body, convert_resnet34_body_state
+from .resnet import (BasicBlock, Bottleneck, ResNet34Body, ResNet50Features,
+                     convert_resnet34_body_state)
+from .vgg import VGG16Features, VGG19Features, VGGFeatures
 
 __all__ = ["AlexNetFeatures", "convert_alexnet_state", "IRSEBackbone", "IRSEBody",
-           "convert_irse_state", "get_blocks", "BasicBlock", "ResNet34Body",
-           "convert_resnet34_body_state"]
+           "convert_irse_state", "get_blocks", "BasicBlock", "Bottleneck", "ResNet34Body",
+           "ResNet50Features", "convert_resnet34_body_state", "VGGFeatures", "VGG16Features",
+           "VGG19Features"]

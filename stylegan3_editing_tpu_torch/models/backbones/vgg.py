@@ -1,0 +1,57 @@
+"""VGG feature stacks (NHWC in public): the five stage outputs.
+
+Counterpart of the JAX package's `models/backbones/vgg.py` (torchvision
+``vgg16().features`` / ``vgg19().features``, taps after relu1_2 … relu5_3).
+Convs are named ``conv0 …`` in order with HWIO kernels, as the flax tree
+names them, and run through `device.conv2d` (full fp32 on the card).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...ops.image import max_pool2d
+from .common import Conv2d
+
+N_CHANNELS = (64, 128, 256, 512, 512)
+_STAGES = ((64, 64), (128, 128), (256, 256, 256), (512, 512, 512), (512, 512, 512))
+_STAGES19 = ((64, 64), (128, 128), (256,) * 4, (512,) * 4, (512,) * 4)
+
+
+class VGGFeatures(nn.Module):
+    """NHWC input → the list of 5 feature maps at the end of each conv
+    stage; a 2×2 max pool opens every stage but the first."""
+
+    def __init__(self, stages: Sequence[Sequence[int]] = _STAGES, in_channels: int = 3,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.stages = tuple(tuple(s) for s in stages)
+        idx = 0
+        for widths in self.stages:
+            for width in widths:
+                self.add_module(f"conv{idx}", Conv2d(in_channels, width, 3, 1, 1,
+                                                     generator=generator))
+                in_channels, idx = width, idx + 1
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        feats, idx = [], 0
+        for stage_i, widths in enumerate(self.stages):
+            if stage_i > 0:
+                x = max_pool2d(x, 2, 2)
+            for _ in widths:
+                x = F.relu(getattr(self, f"conv{idx}")(x))
+                idx += 1
+            feats.append(x)
+        return feats
+
+
+def VGG16Features(**kw) -> VGGFeatures:
+    return VGGFeatures(stages=_STAGES, **kw)
+
+
+def VGG19Features(**kw) -> VGGFeatures:
+    return VGGFeatures(stages=_STAGES19, **kw)

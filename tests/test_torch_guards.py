@@ -237,7 +237,32 @@ def _conv_calls():
         x = leaf(2, 9, 10, 4)
         return upfirdn2d(x, hann_taps(4), up=2, down=2, padding=3), [x]
 
-    return {"modulated_conv2d_3x3": modulated, "alexnet_Conv2d": alexnet, "upfirdn2d": fir}
+    def mapper_step():
+        """One StyleCLIP mapper step's loss on a slim decoder with a small
+        CLIP and the 8-layer IR-SE trunk: the gradient to the mapper runs
+        back through CLIP's patch conv and the IR-SE convs (inputs only: both
+        nets are frozen)."""
+        from stylegan3_editing_tpu_torch.editing.styleclip_mapper import (MapperCoach,
+                                                                         MapperTrainOptions)
+        from stylegan3_editing_tpu_torch.models.backbones.clip import CLIP
+        from stylegan3_editing_tpu_torch.models.backbones.irse import IRSEBackbone
+
+        cfg = sg3_r_config(32, channel_base=512, channel_max=16, num_layers=7)
+        gen = torch.Generator().manual_seed(4)
+        tokens = np.zeros((1, 77), np.int64)
+        tokens[0, :3] = (49406, 320, 49407)
+        coach = MapperCoach(
+            MapperTrainOptions(stylegan_size=32), cfg,
+            clip_model=CLIP(embed_dim=32, image_resolution=224, vision_width=64, vision_layers=1,
+                            text_width=32, text_layers=1, text_heads=2, device="cpu",
+                            generator=gen),
+            facenet=IRSEBackbone(112, 8, "ir_se", generator=gen), text_tokens=tokens,
+            device="cpu")
+        w = torch.from_numpy(rng.randn(2, cfg.num_ws, 512).astype(np.float32))
+        return coach.loss(w)[0], list(coach.net.mapper.parameters())
+
+    return {"modulated_conv2d_3x3": modulated, "alexnet_Conv2d": alexnet, "upfirdn2d": fir,
+            "styleclip_mapper_step": mapper_step}
 
 
 @pytest.mark.parametrize("op", sorted(_conv_calls()))
@@ -468,6 +493,58 @@ def test_styleclip_and_video_entry_points_raise_without_a_card(monkeypatch, entr
                 ["--output_path", str(tmp_path)]),
             "styleclip_edit": lambda: styleclip_edit.main(["--exp_dir", str(tmp_path)]),
             "inference_on_video": lambda: inference_on_video.main(
+                ["--output_path", str(tmp_path)])}[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+
+
+def test_training_side_modules_import_without_optional_packages():
+    """The scorers, the mapper and its losses, Ranger, MTCNN and the three
+    CLIs of this side (`train_boundaries`, `prepare_faces_parallel`,
+    `calc_id_loss_parallel`) import with Pillow, cv2, dlib, scikit-learn and
+    orbax unavailable (the card machine has none of them) and leave JAX
+    unloaded."""
+    blocked = ("PIL", "imageio", "cv2", "dlib", "regex", "sklearn", "orbax", "jax", "flax")
+    code = ("import sys, json\n"
+            f"for name in {blocked!r}:\n"
+            "    sys.modules[name] = None\n"
+            "import stylegan3_editing_tpu_torch.editing.attribute_scorers, "
+            "stylegan3_editing_tpu_torch.editing.styleclip_mapper, "
+            "stylegan3_editing_tpu_torch.criteria, "
+            "stylegan3_editing_tpu_torch.training.ranger, "
+            "stylegan3_editing_tpu_torch.models.mtcnn, "
+            "stylegan3_editing_tpu_torch.models.backbones.vgg, "
+            "stylegan3_editing_tpu_torch.scripts.train_boundaries, "
+            "stylegan3_editing_tpu_torch.scripts.prepare_faces_parallel, "
+            "stylegan3_editing_tpu_torch.scripts.calc_id_loss_parallel\n"
+            "print(json.dumps(sorted(m for m in sys.modules if sys.modules[m] is not None "
+            f"and m.split('.')[0] in {blocked + ('stylegan3_editing_tpu',)!r})))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("entry", ["age", "pose", "attributes", "mapper_coach", "mtcnn",
+                                   "train_boundaries", "calc_id_loss_parallel"])
+def test_training_side_entry_points_raise_without_a_card(monkeypatch, entry, tmp_path):
+    """The scorers, the mapper's coach, MTCNN and the two CLIs that run on
+    the card raise without one unless they are given ``device="cpu"``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from stylegan3_editing_tpu_torch.editing import attribute_scorers as sc
+    from stylegan3_editing_tpu_torch.editing.styleclip_mapper import (MapperCoach,
+                                                                     MapperTrainOptions)
+    from stylegan3_editing_tpu_torch.models.mtcnn import MTCNN
+    from stylegan3_editing_tpu_torch.scripts import calc_id_loss_parallel, train_boundaries
+
+    cfg = sg3_r_config(32, channel_base=512, channel_max=16, num_layers=7)
+    call = {"age": sc.AgeEstimator, "pose": sc.PoseEstimator,
+            "attributes": sc.AttributeClassifier,
+            "mapper_coach": lambda: MapperCoach(MapperTrainOptions(), cfg,
+                                                text_tokens=np.zeros((1, 77), np.int64)),
+            "mtcnn": MTCNN,
+            "train_boundaries": lambda: train_boundaries.main(["--output_dir", str(tmp_path)]),
+            "calc_id_loss_parallel": lambda: calc_id_loss_parallel.main(
                 ["--output_path", str(tmp_path)])}[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()

@@ -737,3 +737,83 @@ def test_styleclip_edit_through_the_kernels_matches_plain(cuda_device, tmp_path)
         torch.testing.assert_close(got, ref, rtol=0, atol=1e-3)
         plain = G.synthesize(None, all_s=all_s, force_fp32=True, impl="ref")
         assert float((plain - ref).abs().max()) > 1e-3
+
+
+ALL_LAYERS = [s.name for s in build_synthesis_layout(sg3_r_config(1024)).layers
+              if s.up_filter is not None]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ALL_LAYERS)
+def test_flrelu_bwd_kernel_fp32_route_at_batch_2(cuda_device, name):
+    """The backward kernel's fp32 route, which the StyleCLIP mapper's step
+    runs on every layer at batch 2 (`force_fp32=True`, bf16 layers
+    included): dx against `filtered_lrelu_bwd_ref` within atol = rtol =
+    1e-4 (sum order), at a reduced size with a ragged channel count, x scaled
+    so that the clamp bites."""
+    s = _layer(name)
+    rng = np.random.RandomState(13)
+    hi, c = max(s.in_size[1] // 8, 40), min(s.out_channels, 45)
+    x = torch.from_numpy(rng.randn(2, hi, hi, c).astype(np.float32) * 150).to(cuda_device)
+    b = torch.from_numpy(rng.randn(c).astype(np.float32)).to(cuda_device)
+    out = flrelu_cuda.output_size(hi, s.up_factor, s.padding[2], s.padding[3],
+                                  len(s.up_filter), s.down_filter.shape[0])
+    out_w = flrelu_cuda.output_size(hi, s.up_factor, s.padding[0], s.padding[1],
+                                    len(s.up_filter), s.down_filter.shape[0])
+    dy = torch.from_numpy(rng.randn(2, out, out_w, c).astype(np.float32)).to(cuda_device)
+    before = flrelu_cuda.launches["filtered_lrelu_bwd"]
+    got = flrelu_cuda.filtered_lrelu_bwd_cuda(dy, x, s.up_filter, s.down_filter, b, s.up_factor,
+                                              s.padding, 2 ** 0.5, 0.2, s.conv_clamp)
+    assert flrelu_cuda.launches["filtered_lrelu_bwd"] == before + 1
+    ref = filtered_lrelu_bwd_ref(dy, x, s.up_filter, s.down_filter, b, s.up_factor, s.padding,
+                                 clamp=s.conv_clamp)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_mapper_step_through_the_kernels_matches_plain(cuda_device):
+    """One StyleCLIP mapper step (all three losses) on a slim SG3-R 64² with
+    a small CLIP at 224² and the 8-layer IR-SE trunk: each filtered layer
+    launches the forward kernel twice (ŵ's image and ``x_orig``) and the
+    backward kernel once (the decoder is frozen: dx only); the losses and
+    every mapper gradient through the kernels against ``impl="ref"`` within
+    1e-3 of the tensor's largest |grad| (`chip_smoke.py`'s `GRAD_TOL`)."""
+    from stylegan3_editing_tpu_torch.editing.styleclip_mapper import (MapperCoach,
+                                                                     MapperTrainOptions)
+    from stylegan3_editing_tpu_torch.models.backbones.clip import CLIP
+    from stylegan3_editing_tpu_torch.models.backbones.irse import IRSEBackbone
+
+    cfg = sg3_r_config(64, channel_base=2048, channel_max=64, num_layers=7)
+    n_layers = sum(s.up_filter is not None for s in build_synthesis_layout(cfg).layers)
+    gen = torch.Generator().manual_seed(21)
+    tokens = np.zeros((1, 77), np.int64)
+    tokens[0, :4] = (49406, 320, 1125, 49407)
+    coach = MapperCoach(
+        MapperTrainOptions(stylegan_size=64), cfg,
+        clip_model=CLIP(embed_dim=32, image_resolution=224, vision_width=64, vision_layers=2,
+                        text_width=32, text_layers=2, text_heads=4, device=cuda_device,
+                        generator=gen),
+        facenet=IRSEBackbone(112, 8, "ir_se", generator=gen).to(cuda_device),
+        text_tokens=tokens, device=cuda_device)
+    w = coach.net.decoder.map(torch.randn((2, cfg.z_dim), generator=gen).to(cuda_device),
+                              truncation_psi=0.7)
+    runs = {}
+    for impl in ("auto", "ref"):
+        flrelu_cuda.reset_launches()
+        runs[impl] = coach.loss_and_grads(w, impl=impl)
+        torch.cuda.synchronize()
+        want = {"auto": n_layers, "ref": 0}[impl]
+        assert flrelu_cuda.launches == {"filtered_lrelu_fwd": 2 * want,
+                                        "filtered_lrelu_bwd": want, "fir_taps": 0,
+                                        "fir_banded": 0}
+    assert all(p.grad is None for p in coach.net.decoder.parameters())
+    (m_auto, g_auto), (m_ref, g_ref) = runs["auto"], runs["ref"]
+    assert all(np.isfinite(v) for v in m_auto.values())
+    for k, v in m_ref.items():
+        assert abs(m_auto[k] - v) <= 1e-4 * abs(v) + 2.0 ** -20, (k, m_auto[k], v)
+    assert g_auto.keys() == g_ref.keys() and g_auto
+    for k, g in g_ref.items():
+        torch.testing.assert_close(g_auto[k], g, rtol=0,
+                                   atol=1e-3 * float(g.abs().max()) + 1e-30, msg=k)
