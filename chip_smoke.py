@@ -142,7 +142,26 @@ Phases (any failure exits non-zero before the result lines):
    scale pyramid and its R- and O-Nets at batch 64, and
    `calc_id_loss_parallel`'s IR-101 at batch 4, card vs CPU within
    `FP32_TOL` (detect and align resize with Pillow, which the card's machine
-   lacks; they run in the CPU tests).
+   lacks; they run in the CPU tests);
+14. ReStyle encoder training at full width, seeded weights: (a) `Coach.train`
+   for pSp at the upstream README's FFHQ command (SG3-R 1024, IR-SE-50 at
+   256^2, batch 2, 3 iterations, LPIPS 0.8 / L2 1 / ID 0.1, Ranger lr 1e-4,
+   an effective batch of 8) for 8 micro-steps, a validation batch at 4 and
+   a checkpoint at 8 (no image grids: no Pillow there): 42 + 42 launches
+   every micro-step, the encoder moving at micro-steps 4 and 8 only and its
+   batch-norm statistics at every one, no gradient in the decoder or the
+   loss nets, the checkpoint through `load_encoder` giving the coach's codes
+   to 0; s per micro-step and per optimizer step, peak memory, and one traced
+   micro-step with Ranger's step (the idle share; #1's and #2's device time;
+   the encoder's, IR-SE-50's, LPIPS' and Ranger's host and device time);
+   (b) e4e at `scripts/train_e4e.sh`'s recipe (ResNet-34 progressive, 256^2,
+   w-disc 0.1, pools of 50, psi 0.7) with ``progressive_steps=[0, 2, 4]``
+   for 6 micro-steps, R1 every 4: the discriminator's, R1's and the delta
+   losses finite, the stage advancing, 14 + 14 launches a decode, s per
+   micro-step; (c) one pSp micro-step at batch 1 through the kernels
+   against ``impl="ref"`` (the plain decodes recomputed in the backward):
+   the losses within `MAPPER_LOSS_TOL`, every encoder gradient within
+   `GRAD_TOL` of the gradient's largest |entry|.
 
 PyTorch's TF32 flags stay at their defaults: matmuls run in fp32 by
 default, and the port holds its cuDNN convs to fp32 itself (`device.conv2d`;
@@ -1712,6 +1731,262 @@ def editing_training_phase(dev, card, layers, bwd_kernel_call, bwd_plain_call):
     return max_err
 
 
+RESTYLE_TRAIN_STEPS, RESTYLE_ACCUM = 8, 4  # two optimizer steps at the effective batch of 8
+E4E_STEPS = 6
+
+
+def restyle_training_phase(dev, card, n_layers):
+    """Phase 14: ReStyle encoder training at full width, seeded weights. (a)
+    `Coach.train` for pSp on SG3-R 1024 with the IR-SE-50 encoder at the
+    upstream README's FFHQ settings (batch 2, 3 iterations, LPIPS 0.8, L2 1,
+    ID 0.1, Ranger lr 1e-4, an effective batch of 8): 8 micro-steps, a
+    validation batch at 4 and a checkpoint at 8; per micro-step 42 + 42
+    launches, the encoder moving at micro-steps 4 and 8 only and its
+    statistics at every one, no gradient in the decoder or the loss nets; the
+    checkpoint through `load_encoder` gives the coach's codes to 0; s per
+    micro-step and per optimizer step, peak memory, a traced micro-step with
+    the optimizer's step. (b) e4e at `scripts/train_e4e.sh`'s recipe (256²,
+    the ResNet-34 progressive encoder, w-disc 0.1, pools of 50, psi 0.7) with
+    ``progressive_steps=[0, 2, 4]``, 6 micro-steps, R1 every 4. (c) one pSp
+    micro-step at batch 1 through the kernels against ``impl="ref"``: the
+    losses and every encoder gradient. Returns the peak memory of (a) in GiB."""
+    import tempfile
+
+    from torch.profiler import record_function
+
+    from stylegan3_editing_tpu_torch.models.sg3 import build_synthesis_layout, sg3_r_config
+    from stylegan3_editing_tpu_torch.ops import flrelu_cuda
+    from stylegan3_editing_tpu_torch.training import Coach, E4eTrainOptions, TrainOptions
+    from stylegan3_editing_tpu_torch.utils.inference_utils import load_encoder
+
+    def seeded(coach, seed):
+        seeded_batch_norms(coach.model.encoder, seed)
+        if coach.id_loss is not None:
+            seeded_batch_norms(coach.id_loss, seed + 1)
+        with torch.no_grad():
+            z = torch.randn((256, coach.decoder_cfg.z_dim),
+                            generator=torch.Generator().manual_seed(seed + 2))
+            coach.model.decoder.mapping.w_avg.copy_(coach.model.decoder.map(z.to(dev))[:, 0]
+                                                    .mean(0))
+        coach.load_jax_state()  # latent_avg and the average image from the new w_avg
+        return coach
+
+    def faces(n, batch, seed):
+        gen = torch.Generator().manual_seed(seed)
+        return [tuple((torch.rand((batch, 256, 256, 3), generator=gen) * 2 - 1).numpy()
+                      for _ in range(2)) for _ in range(n)]
+
+    def instrument(coach, record):
+        """Each micro-step of `Coach.train`: its launches (counts zeroed just
+        before it), CUDA-synchronised seconds, whether the encoder's
+        parameters and its batch-norm statistics moved."""
+        step = coach.train_step
+        params = [p for n, p in coach.trainable if n.startswith("encoder.")]
+        stats = [b for n, b in coach.model.named_buffers() if n.startswith("encoder.")]
+
+        def timed(batch, **kw):
+            before = [p.detach().clone() for p in params]
+            stats_before = [b.clone() for b in stats]
+            torch.cuda.synchronize()
+            flrelu_cuda.reset_launches()
+            t0 = time.perf_counter()
+            out = step(batch, **kw)
+            torch.cuda.synchronize()
+            record.append(dict(
+                s=time.perf_counter() - t0, launches=dict(flrelu_cuda.launches), metrics=out,
+                moved=any(not torch.equal(a, p) for a, p in zip(before, params)),
+                stats_moved=all(not torch.equal(a, b) for a, b in zip(stats_before, stats))))
+            return out
+
+        coach.train_step = timed
+
+    def finite(metrics):
+        return all(math.isfinite(v) for v in metrics.values())
+
+    # (a) pSp at full width, the README's FFHQ command.
+    cfg = sg3_r_config(1024)
+    with tempfile.TemporaryDirectory() as tmp:
+        opts = TrainOptions(exp_dir=str(Path(tmp) / "psp"), encoder_type="BackboneEncoder",
+                            batch_size=2, test_batch_size=2, n_iters_per_batch=3,
+                            lpips_lambda=0.8, l2_lambda=1.0, id_lambda=0.1, w_norm_lambda=0.0,
+                            moco_lambda=0.0, start_from_latent_avg=True, input_nc=6,
+                            output_size=1024, learning_rate=1e-4, effective_batch_size=8,
+                            board_interval=1, image_interval=0, val_interval=4,
+                            save_interval=RESTYLE_TRAIN_STEPS, max_val_batches=1,
+                            max_steps=RESTYLE_TRAIN_STEPS)
+        t0 = time.perf_counter()
+        coach = seeded(Coach(opts, cfg, device=dev), 180)
+        build_s = time.perf_counter() - t0
+        data = faces(RESTYLE_TRAIN_STEPS + 2, 2, seed=181)
+        coach.loss_and_grads(data[-1])  # warm-up: one forward and backward, no update
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        record = []
+        instrument(coach, record)
+        t0 = time.perf_counter()
+        coach.train(iter(data[:RESTYLE_TRAIN_STEPS]), val_batches_fn=lambda: iter(data[-2:-1]))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del coach.train_step  # the instance attribute: the method shows again
+        want = {"filtered_lrelu_fwd": 3 * n_layers, "filtered_lrelu_bwd": 3 * n_layers,
+                **NO_FIR}
+        frozen = [p for m in (coach.model.decoder, *coach.loss_nets().values())
+                  for p in m.parameters()]
+        ok = (len(record) == RESTYLE_TRAIN_STEPS
+              and all(r["launches"] == want for r in record)
+              and [r["moved"] for r in record] == [i % RESTYLE_ACCUM == RESTYLE_ACCUM - 1
+                                                   for i in range(RESTYLE_TRAIN_STEPS)]
+              and all(r["stats_moved"] and finite(r["metrics"]) for r in record)
+              and not any(p.requires_grad or p.grad is not None for p in frozen)
+              and coach.optimizer.param_groups[0]["step"] == RESTYLE_TRAIN_STEPS // RESTYLE_ACCUM
+              and coach.best_val_loss is not None and math.isfinite(coach.best_val_loss))
+        first, last = record[0]["metrics"], record[-1]["metrics"]
+        print(f"restyle coach pSp, SG3-R 1024 + IR-SE-50 at 256^2, batch 2, 3 iterations, "
+              f"effective batch 8 (Ranger lr 1e-4; lambdas lpips 0.8, l2 1, id 0.1): "
+              f"{RESTYLE_TRAIN_STEPS} micro-steps through Coach.train; launches per micro-step "
+              f"{[r['launches']['filtered_lrelu_fwd'] for r in record]} forward and "
+              f"{[r['launches']['filtered_lrelu_bwd'] for r in record]} backward (want "
+              f"{3 * n_layers} each); encoder moved at micro-steps "
+              f"{[i + 1 for i, r in enumerate(record) if r['moved']]}, statistics at every one: "
+              f"{all(r['stats_moved'] for r in record)}; loss_total {first['loss_total']:.6f} -> "
+              f"{last['loss_total']:.6f} (lpips {first['loss_lpips']:.6f} -> "
+              f"{last['loss_lpips']:.6f}, l2 {first['loss_l2']:.6f} -> {last['loss_l2']:.6f}, "
+              f"id {first['loss_id']:.3e} -> {last['loss_id']:.3e}); validation loss "
+              f"{coach.best_val_loss:.6f}; frozen parameters with requires_grad or a gradient: "
+              f"{sum(p.requires_grad or p.grad is not None for p in frozen)} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("restyle coach: launches, parameter or statistics movement, finite "
+                             "losses, frozen parts or the optimizer's clock failed")
+        micro = [r["s"] for r in record]
+        print(f"time restyle coach micro-step: {sum(micro) / len(micro):.4f} s "
+              f"({min(micro):.4f}-{max(micro):.4f}; after a warm-up forward and backward); "
+              f"per optimizer step (4 micro-steps) {sum(micro) / 2:.4f} s; Coach.train "
+              f"{train_s:.2f} s with the validation batch and two checkpoints; peak memory "
+              f"{peak:.3f} GiB; coach built in {build_s:.2f} s {card}")
+
+        # The step-8 checkpoint through the port's load_encoder: the coach's codes.
+        ckpt = Path(opts.exp_dir) / "checkpoints" / f"iteration_{RESTYLE_TRAIN_STEPS}"
+        model, _ = load_encoder(ckpt, device=dev)
+        x6 = torch.from_numpy(np.concatenate([data[0][0], data[1][0]], axis=-1)).to(dev)
+        with torch.no_grad():
+            codes = [m.encode(x6, latent_avg=coach.latent_avg) for m in (model, coach.model)]
+        err = float((codes[0] - codes[1]).abs().max())
+        print(f"restyle checkpoint after micro-step {RESTYLE_TRAIN_STEPS} through load_encoder: "
+              f"codes of one batch against the coach's, max abs err {err:.3e} (want 0) "
+              f"{'ok' if err == 0 else 'FAIL'}")
+        if err != 0:
+            raise SystemExit("the coach's checkpoint does not reproduce its codes")
+        del model, codes
+        torch.cuda.empty_cache()
+
+        # One traced micro-step with the optimizer's step (the 4th of a cycle).
+        for batch in data[:RESTYLE_ACCUM - 1]:
+            coach.train_step(batch)
+
+        def traced():
+            coach.train_step(data[RESTYLE_ACCUM - 1])
+
+        print_trace("restyle coach micro-step with Ranger's step, batch 2", device_trace(
+            traced, model=coach.model, ranges=[
+                ("forward and backward", coach, "_loss_and_grads"),
+                ("ir-se-50 (id loss, y_hat)", coach.id_loss, "extract_feats"),
+                ("lpips (forward)", coach.lpips, "forward"),
+                ("ranger", coach.optimizer, "step")]), card)
+        if coach.accum_count != 0:
+            raise SystemExit("the traced micro-step did not end an accumulation cycle")
+
+        # (c) One micro-step at batch 1 through the kernels against impl="ref".
+        # The plain composition keeps each layer's up-sampled intermediates for
+        # the backward (~30 GB a 1024^2 decode at batch 1), so the plain run
+        # recomputes each decode in the backward (activation checkpointing):
+        # the same plain ops on the same inputs, the same gradient.
+        from torch.utils.checkpoint import checkpoint
+
+        one = tuple(b[:1] for b in data[0])
+        flrelu_cuda.reset_launches()
+        runs = {"auto": coach.loss_and_grads(one, impl="auto")}
+        auto_launches = dict(flrelu_cuda.launches)
+        decode = coach.model.decode
+        coach.model.decode = lambda codes, **kw: checkpoint(decode, codes, use_reentrant=False,
+                                                            **kw)
+        try:
+            flrelu_cuda.reset_launches()
+            runs["ref"] = coach.loss_and_grads(one, impl="ref")
+            ref_launches = dict(flrelu_cuda.launches)
+        finally:
+            del coach.model.decode
+        (m_k, g_k), (m_r, g_r) = runs["auto"], runs["ref"]
+        loss_ok = all(abs(m_k[k] - v) <= MAPPER_LOSS_TOL[0] * abs(v) + MAPPER_LOSS_TOL[1]
+                      for k, v in m_r.items())
+        # The encoder's gradient is held at its own scale (its largest |entry|):
+        # the train-mode batch norms cancel some tensors' gradients to rounding
+        # noise (a shortcut BN's bias feeding only batch norms has a gradient of
+        # 0 analytically), which any change of summation order redraws. Each
+        # tensor's error over its own max is printed too.
+        scale = max(float(g.abs().max()) for g in g_r.values())
+        errs = {k: float((g_k[k] - g).abs().max()) for k, g in g_r.items()}
+        worst = max((errs[k] / float(g.abs().max()), k) for k, g in g_r.items()
+                    if float(g.abs().max()) > 0)
+        ok = (loss_ok and max(errs.values()) <= GRAD_TOL * scale
+              and ref_launches == {**FLRELU, **NO_FIR}
+              and auto_launches == {"filtered_lrelu_fwd": 3 * n_layers,
+                                    "filtered_lrelu_bwd": 3 * n_layers, **NO_FIR})
+        print(f"restyle micro-step, batch 1, 3 iterations, kernels vs impl='ref': losses "
+              + ", ".join(f"{k} {m_k[k]:.6g} / {v:.6g}" for k, v in m_r.items())
+              + f" (tol {MAPPER_LOSS_TOL[0]:g} relative + 2^-20); {len(g_r)} encoder tensors, "
+              f"max abs err {max(errs.values()):.3e} against the gradient's largest |entry| "
+              f"{scale:.3e} (tol {GRAD_TOL:g} of it); per tensor, worst max abs err / its max "
+              f"|grad| {worst[0]:.3e} on {worst[1]} (whose max |grad| is "
+              f"{float(g_r[worst[1]].abs().max()) / scale:.3e} of the scale) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("the restyle micro-step through the kernels disagrees with "
+                             "impl='ref'")
+        del coach, runs, g_k, g_r
+        torch.cuda.empty_cache()
+
+        # (b) e4e at scripts/train_e4e.sh's recipe, progressive stages added.
+        cfg256 = sg3_r_config(256)
+        n256 = sum(s.up_filter is not None for s in build_synthesis_layout(cfg256).layers)
+        eopts = E4eTrainOptions(
+            exp_dir=str(Path(tmp) / "e4e"), encoder_type="ResNetProgressiveBackboneEncoder",
+            batch_size=2, n_iters_per_batch=3, lpips_lambda=0.8, l2_lambda=1.0, id_lambda=0.1,
+            w_discriminator_lambda=0.1, use_w_pool=True, w_pool_size=50, truncation_psi=0.7,
+            input_nc=6, output_size=256, progressive_steps=[0, 2, 4], d_reg_every=4)
+        e4e = seeded(Coach(eopts, cfg256, device=dev), 190)
+        erecord, stages = [], []
+        instrument(e4e, erecord)
+        for batch in faces(E4E_STEPS, 2, seed=191):
+            stages.append(e4e._current_stage())
+            e4e.train_step(batch)
+        del e4e.train_step
+        needed = {"discriminator_loss", "encoder_discriminator_loss", "total_delta_loss"}
+        r1_at = [i for i, r in enumerate(erecord) if "discriminator_r1_loss" in r["metrics"]]
+        want = {"filtered_lrelu_fwd": 3 * n256, "filtered_lrelu_bwd": 3 * n256, **NO_FIR}
+        ok = (all(needed <= set(r["metrics"]) and finite(r["metrics"]) for r in erecord)
+              and r1_at == [0, 4] and stages == [0, 0, 1, 1, 2, 2]
+              and all(r["launches"] == want for r in erecord))
+        emicro = [r["s"] for r in erecord]
+        print(f"restyle coach e4e (scripts/train_e4e.sh: ResNet-34 progressive, 256^2, w-disc "
+              f"0.1, pools of 50, psi 0.7, batch 2, 3 iterations; progressive_steps [0, 2, 4], "
+              f"R1 every 4): {E4E_STEPS} micro-steps, stages {stages}, R1 at micro-steps "
+              f"{[i + 1 for i in r1_at]}, discriminator_loss "
+              f"{[round(r['metrics']['discriminator_loss'], 4) for r in erecord]}, "
+              f"total_delta_loss {[round(r['metrics']['total_delta_loss'], 4) for r in erecord]}, "
+              f"launches per micro-step {erecord[0]['launches']['filtered_lrelu_fwd']} + "
+              f"{erecord[0]['launches']['filtered_lrelu_bwd']} ({n256} a decode) "
+              f"{'ok' if ok else 'FAIL'}")
+        print(f"time restyle coach e4e micro-step: {sum(emicro[1:]) / (len(emicro) - 1):.4f} s "
+              f"(micro-steps 2-{E4E_STEPS}; the first {emicro[0]:.4f} s) {card}")
+        if not ok:
+            raise SystemExit("restyle e4e coach: metrics, R1, stages or launches failed")
+        del e4e
+        torch.cuda.empty_cache()
+    return peak
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card",
@@ -2227,6 +2502,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     now = time.perf_counter()
     print(f"elapsed: phase 13 {now - t13:.1f} s, the script {now - t_start:.1f} s")
+
+    # 14. ReStyle encoder training: the pSp coach at full width, e4e, kernels vs plain.
+    t14 = time.perf_counter()
+    restyle_training_phase(dev, card, len(layers))
+    torch.cuda.empty_cache()
+    now = time.perf_counter()
+    print(f"elapsed: phase 14 {now - t14:.1f} s, the script {now - t_start:.1f} s")
 
     def fir_entry(name, replaces):
         row = fir_rows[name, FIR_SHAPES[1], torch.bfloat16]

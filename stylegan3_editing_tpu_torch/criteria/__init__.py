@@ -3,5 +3,8 @@
 from .clip_loss import CLIPLoss
 from .id_loss import IDLoss
 from .lpips import LPIPS, convert_lpips_linear_state
+from .moco_loss import MocoLoss
+from .w_norm import w_norm_loss
 
-__all__ = ["CLIPLoss", "IDLoss", "LPIPS", "convert_lpips_linear_state"]
+__all__ = ["CLIPLoss", "IDLoss", "LPIPS", "convert_lpips_linear_state", "MocoLoss",
+           "w_norm_loss"]

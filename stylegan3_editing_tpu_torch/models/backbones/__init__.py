@@ -7,10 +7,12 @@ so `models.sg3.load_jax_variables` fills them from a flax variable tree.
 from .alexnet import AlexNetFeatures, convert_alexnet_state
 from .irse import IRSEBackbone, IRSEBody, convert_irse_state, get_blocks
 from .resnet import (BasicBlock, Bottleneck, ResNet34Body, ResNet50Features,
-                     convert_resnet34_body_state)
+                     convert_bottleneck_stages_state, convert_resnet34_body_state,
+                     convert_resnet50_state)
 from .vgg import VGG16Features, VGG19Features, VGGFeatures
 
 __all__ = ["AlexNetFeatures", "convert_alexnet_state", "IRSEBackbone", "IRSEBody",
            "convert_irse_state", "get_blocks", "BasicBlock", "Bottleneck", "ResNet34Body",
-           "ResNet50Features", "convert_resnet34_body_state", "VGGFeatures", "VGG16Features",
+           "ResNet50Features", "convert_resnet34_body_state",
+           "convert_bottleneck_stages_state", "convert_resnet50_state", "VGGFeatures", "VGG16Features",
            "VGG19Features"]

@@ -1,11 +1,12 @@
 """ResNet bodies (NHWC in public): ResNet-34 for the ReStyle ResNet encoder
-trunks, ResNet-50 for the pose and attribute scorers.
+trunks, ResNet-50 for the pose and attribute scorers and the MoCo loss.
 
 Counterpart of two parts of the JAX package's `models/backbones/resnet.py`:
 torchvision ``resnet34`` layer1–4 (as restyle_psp_encoders.ResNetBackboneEncoder
 uses it: `BasicBlock`, `ResNet34Body` and the converter from torchvision's
 ``layerN.M.*`` naming) and torchvision ``resnet50`` without its fc head
-(`Bottleneck`, `ResNet50Features`: the plain bottleneck only). Parameter and
+(`Bottleneck`, `ResNet50Features`: the plain bottleneck only, with its
+converter `convert_resnet50_state` for the MoCo loss). Parameter and
 buffer names follow the flax tree (``layer2_0.down_conv.kernel``,
 ``layer2_0.bn1.mean``). The bottleneck's ``se`` and ``avg_down`` variants
 and the staged feature contracts go with the backbone registry (ROADMAP
@@ -148,3 +149,31 @@ class ResNet50Features(nn.Module):
         for name in self.names:
             x = getattr(self, name)(x, train=train)
         return x.mean(dim=(1, 2))
+
+
+def convert_bottleneck_stages_state(state: Mapping[str, np.ndarray],
+                                    stages=RESNET50_STAGES) -> dict:
+    """torchvision bottleneck-ResNet state dict (the plain stem ``conv1``,
+    ``bn1``; ``layerN.M.*``) → ``{'params', 'batch_stats'}`` named as
+    `ResNet50Features`. timm's SE and ``avg_down`` layouts go with the
+    backbone registry."""
+    params: dict = {}
+    stats: dict = {}
+    put(params, "conv1/kernel", conv_w(state["conv1.weight"]))
+    bn_from_torch(params, stats, "bn1", state, "bn1")
+    for stage_i, (blocks, _, _, _) in enumerate(stages, start=1):
+        for block_i in range(blocks):
+            t, o = f"layer{stage_i}.{block_i}", f"layer{stage_i}_{block_i}"
+            for ci in (1, 2, 3):
+                put(params, f"{o}/conv{ci}/kernel", conv_w(state[f"{t}.conv{ci}.weight"]))
+                bn_from_torch(params, stats, f"{o}/bn{ci}", state, f"{t}.bn{ci}")
+            if f"{t}.downsample.0.weight" in state:
+                put(params, f"{o}/down_conv/kernel", conv_w(state[f"{t}.downsample.0.weight"]))
+                bn_from_torch(params, stats, f"{o}/down_bn", state, f"{t}.downsample.1")
+    return {"params": params, "batch_stats": stats}
+
+
+def convert_resnet50_state(state: Mapping[str, np.ndarray]) -> dict:
+    """torchvision resnet50 state dict (or a MoCo one with its
+    ``module.encoder_q.`` prefix stripped) → ``{'params', 'batch_stats'}``."""
+    return convert_bottleneck_stages_state(state, RESNET50_STAGES)

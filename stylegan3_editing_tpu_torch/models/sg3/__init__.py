@@ -1,7 +1,7 @@
 """Alias-free StyleGAN3 generator in PyTorch."""
 
 from .config import SG3Config, build_synthesis_layout, sg3_r_config, sg3_t_config
-from .from_jax import load_jax_variables
+from .from_jax import load_jax_variables, to_jax_variables
 from .generator import Generator
 from .layers import FullyConnected, MappingNetwork
 from .synthesis import SynthesisInput, SynthesisLayer, SynthesisNetwork
@@ -12,6 +12,7 @@ __all__ = [
     "sg3_r_config",
     "sg3_t_config",
     "load_jax_variables",
+    "to_jax_variables",
     "Generator",
     "FullyConnected",
     "MappingNetwork",

@@ -261,8 +261,36 @@ def _conv_calls():
         w = torch.from_numpy(rng.randn(2, cfg.num_ws, 512).astype(np.float32))
         return coach.loss(w)[0], list(coach.net.mapper.parameters())
 
+    def restyle_coach_step():
+        """One ReStyle micro-step's loss on a slim decoder with every loss
+        net of the coach (LPIPS, the ID loss on the 8-layer IR-SE trunk, MoCo's
+        ResNet-50) and the 8-layer trunk in the encoder: the gradient to the
+        encoder runs back through the loss nets' convs and its own."""
+        import functools
+
+        from stylegan3_editing_tpu_torch.criteria import id_loss
+        from stylegan3_editing_tpu_torch.models.backbones.irse import IRSEBackbone
+        from stylegan3_editing_tpu_torch.models.encoders import backbones, restyle
+        from stylegan3_editing_tpu_torch.training import Coach, TrainOptions
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setitem(restyle.ENCODER_TYPES, "BackboneEncoder",
+                       functools.partial(backbones.BackboneEncoder, num_layers=8))
+            mp.setattr(id_loss, "IRSEBackbone", lambda input_size, num_layers, mode, **kw:
+                       IRSEBackbone(input_size, 8, mode, **kw))
+            coach = Coach(TrainOptions(n_iters_per_batch=2, lpips_lambda=0.8, l2_lambda=1,
+                                       id_lambda=0.1, moco_lambda=0.5, output_size=32),
+                          sg3_r_config(32, channel_base=512, channel_max=16, num_layers=4),
+                          device="cpu")
+        x = torch.from_numpy(np.tanh(rng.randn(1, 256, 256, 3)).astype(np.float32))
+        outputs = coach._restyle_forward(x, train=True, stage=coach._current_stage())
+        feats = coach._target_feats(x, x)
+        loss = sum(coach._calc_loss(x, y_hat, latent, coach._current_stage(), feats)[0]
+                   for y_hat, latent in outputs)
+        return loss, [p for _, p in coach.trainable]
+
     return {"modulated_conv2d_3x3": modulated, "alexnet_Conv2d": alexnet, "upfirdn2d": fir,
-            "styleclip_mapper_step": mapper_step}
+            "styleclip_mapper_step": mapper_step, "restyle_coach_step": restyle_coach_step}
 
 
 @pytest.mark.parametrize("op", sorted(_conv_calls()))
@@ -546,5 +574,64 @@ def test_training_side_entry_points_raise_without_a_card(monkeypatch, entry, tmp
             "train_boundaries": lambda: train_boundaries.main(["--output_dir", str(tmp_path)]),
             "calc_id_loss_parallel": lambda: calc_id_loss_parallel.main(
                 ["--output_path", str(tmp_path)])}[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+
+
+def test_restyle_training_modules_import_without_optional_packages():
+    """The ReStyle coach, its criteria, discriminator, runtime modules
+    (events, profiling, statistics), prefetcher, training helpers and both
+    training CLIs import with Pillow, cv2, dlib, scikit-learn and orbax
+    unavailable (the card machine has none of them) and leave JAX unloaded."""
+    blocked = ("PIL", "imageio", "cv2", "dlib", "regex", "sklearn", "orbax", "jax", "flax")
+    code = ("import sys, json\n"
+            f"for name in {blocked!r}:\n"
+            "    sys.modules[name] = None\n"
+            "import stylegan3_editing_tpu_torch.training.coach, "
+            "stylegan3_editing_tpu_torch.training.latent_discriminator, "
+            "stylegan3_editing_tpu_torch.criteria.moco_loss, "
+            "stylegan3_editing_tpu_torch.criteria.w_norm, "
+            "stylegan3_editing_tpu_torch.runtime.events, "
+            "stylegan3_editing_tpu_torch.runtime.profiling, "
+            "stylegan3_editing_tpu_torch.runtime.training_stats, "
+            "stylegan3_editing_tpu_torch.data.prefetch, "
+            "stylegan3_editing_tpu_torch.utils.train_utils, "
+            "stylegan3_editing_tpu_torch.configs, "
+            "stylegan3_editing_tpu_torch.scripts.train_restyle_psp, "
+            "stylegan3_editing_tpu_torch.scripts.train_restyle_e4e\n"
+            "print(json.dumps(sorted(m for m in sys.modules if sys.modules[m] is not None "
+            f"and m.split('.')[0] in {blocked + ('stylegan3_editing_tpu',)!r})))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("entry", ["coach", "e4e_coach", "train_restyle_psp",
+                                   "train_restyle_e4e", "moco_loss"])
+def test_restyle_training_entry_points_raise_without_a_card(monkeypatch, entry, tmp_path):
+    """The coach (pSp and e4e), MoCo's loss and both training CLIs raise
+    without a card unless they are given ``device="cpu"``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from PIL import Image
+
+    from stylegan3_editing_tpu_torch.criteria import MocoLoss
+    from stylegan3_editing_tpu_torch.scripts import train_restyle_e4e, train_restyle_psp
+    from stylegan3_editing_tpu_torch.training import Coach, E4eTrainOptions, TrainOptions
+    from stylegan3_editing_tpu_torch.utils.cli import parse_dataclass
+
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tmp_path / "face.png")
+    cfg = sg3_r_config(32, channel_base=512, channel_max=16, num_layers=4)
+    args = ["--train_root", str(tmp_path), "--exp_dir", str(tmp_path / "exp"),
+            "--output_size", "32", "--decoder_channel_base", "512",
+            "--decoder_channel_max", "16", "--decoder_num_layers", "4"]
+    call = {"coach": lambda: Coach(TrainOptions(output_size=32), cfg),
+            "e4e_coach": lambda: Coach(E4eTrainOptions(output_size=32,
+                                                       w_discriminator_lambda=0.1), cfg),
+            "train_restyle_psp": lambda: train_restyle_psp.main(
+                parse_dataclass(train_restyle_psp.PspCliOptions, args)),
+            "train_restyle_e4e": lambda: train_restyle_e4e.main(
+                parse_dataclass(train_restyle_e4e.E4eCliOptions, args)),
+            "moco_loss": MocoLoss}[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()

@@ -817,3 +817,94 @@ def test_mapper_step_through_the_kernels_matches_plain(cuda_device):
     for k, g in g_ref.items():
         torch.testing.assert_close(g_auto[k], g, rtol=0,
                                    atol=1e-3 * float(g.abs().max()) + 1e-30, msg=k)
+
+
+@pytest.fixture
+def slim_restyle_nets(monkeypatch):
+    """The 8-layer IR-SE trunk in the ReStyle encoders and the ID loss."""
+    import functools
+
+    from stylegan3_editing_tpu_torch.criteria import id_loss
+    from stylegan3_editing_tpu_torch.models.backbones.irse import IRSEBackbone
+    from stylegan3_editing_tpu_torch.models.encoders import backbones, restyle
+
+    for name in ("BackboneEncoder", "ProgressiveBackboneEncoder"):
+        monkeypatch.setitem(restyle.ENCODER_TYPES, name,
+                            functools.partial(getattr(backbones, name), num_layers=8))
+    monkeypatch.setattr(id_loss, "IRSEBackbone", lambda input_size, num_layers, mode, **kw:
+                        IRSEBackbone(input_size, 8, mode, **kw))
+
+
+def _restyle_coach(cuda_device, **kw):
+    from stylegan3_editing_tpu_torch.training import Coach, TrainOptions
+
+    cfg = sg3_r_config(64, channel_base=2048, channel_max=64, num_layers=7)
+    opts = TrainOptions(**{**dict(batch_size=2, effective_batch_size=8, n_iters_per_batch=3,
+                                  lpips_lambda=0.8, l2_lambda=1.0, id_lambda=0.1,
+                                  output_size=64, exp_dir="unused"), **kw})
+    coach = Coach(opts, cfg, device=cuda_device)
+    n_layers = sum(s.up_filter is not None for s in build_synthesis_layout(cfg).layers)
+    return coach, n_layers
+
+
+def _faces(n, batch, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return [tuple(torch.tanh(torch.randn((batch, 256, 256, 3), generator=gen)).numpy()
+                  for _ in range(2)) for _ in range(n)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("train_decoder", [False, True])
+def test_restyle_coach_micro_steps_launch_both_kernels(cuda_device, slim_restyle_nets,
+                                                       train_decoder):
+    """Four pSp micro-steps (the README's FFHQ losses, batch 2, 3 iterations,
+    an effective batch of 8) on a slim SG3-R 64²: each micro-step launches
+    the forward and the backward kernel once per filtered layer and
+    iteration; the encoder's parameters move at the fourth micro-step only,
+    its batch-norm statistics at every one; the decoder and the loss nets get
+    no gradient unless ``train_decoder`` (then the backward also gives db)."""
+    coach, n_layers = _restyle_coach(cuda_device, train_decoder=train_decoder)
+    encoder = [p for n, p in coach.trainable if n.startswith("encoder.")]
+    for i, batch in enumerate(_faces(4, 2, seed=31)):
+        before = [p.detach().clone() for p in encoder]
+        stats = coach.model.encoder.trunk.input_bn.mean.clone()
+        flrelu_cuda.reset_launches()
+        metrics = coach.train_step(batch)
+        torch.cuda.synchronize()
+        want = 3 * n_layers
+        assert flrelu_cuda.launches == {"filtered_lrelu_fwd": want, "filtered_lrelu_bwd": want,
+                                        "fir_taps": 0, "fir_banded": 0}
+        assert all(np.isfinite(v) for v in metrics.values())
+        moved = any(not torch.equal(a, p) for a, p in zip(before, encoder))
+        assert moved == (i == 3)
+        assert not torch.equal(stats, coach.model.encoder.trunk.input_bn.mean)
+    for net in coach.loss_nets().values():
+        assert all(p.grad is None and not p.requires_grad for p in net.parameters())
+    assert all(p.requires_grad == train_decoder for p in coach.model.decoder.parameters())
+    assert any(n.startswith("decoder.") for n, _ in coach.trainable) == train_decoder
+
+
+@pytest.mark.gpu
+def test_restyle_coach_step_through_the_kernels_matches_plain(cuda_device, slim_restyle_nets):
+    """One pSp micro-step's forward and backward at batch 1 through the
+    kernels against ``impl="ref"``: the losses within 1e-4 relative plus
+    2⁻²⁰, every encoder gradient within 1e-3 of the encoder gradient's
+    largest |entry| (`chip_smoke.py` phase 14 (c): the train-mode batch norms
+    cancel some tensors' gradients to rounding noise)."""
+    coach, n_layers = _restyle_coach(cuda_device, batch_size=1, effective_batch_size=1)
+    batch = _faces(1, 1, seed=32)[0]
+    runs = {}
+    for impl in ("auto", "ref"):
+        flrelu_cuda.reset_launches()
+        runs[impl] = coach.loss_and_grads(batch, impl=impl)
+        torch.cuda.synchronize()
+        want = {"auto": 3 * n_layers, "ref": 0}[impl]
+        assert flrelu_cuda.launches == {"filtered_lrelu_fwd": want,
+                                        "filtered_lrelu_bwd": want, "fir_taps": 0,
+                                        "fir_banded": 0}
+    (m_auto, g_auto), (m_ref, g_ref) = runs["auto"], runs["ref"]
+    for k, v in m_ref.items():
+        assert abs(m_auto[k] - v) <= 1e-4 * abs(v) + 2.0 ** -20, (k, m_auto[k], v)
+    scale = max(float(g.abs().max()) for g in g_ref.values())
+    for k, g in g_ref.items():
+        torch.testing.assert_close(g_auto[k], g, rtol=0, atol=1e-3 * scale, msg=k)
