@@ -161,7 +161,33 @@ Phases (any failure exits non-zero before the result lines):
    micro-step; (c) one pSp micro-step at batch 1 through the kernels
    against ``impl="ref"`` (the plain decodes recomputed in the backward):
    the losses within `MAPPER_LOSS_TOL`, every encoder gradient within
-   `GRAD_TOL` of the gradient's largest |entry|.
+   `GRAD_TOL` of the gradient's largest |entry|;
+15. the evaluation side and SetGAN's generator at full width, seeded
+   weights: (a) LPIPS on the AlexNet, VGG16 and SqueezeNet trunks and
+   MS-SSIM on a batch of 8 at 256^2, the card against the CPU within
+   `EVAL_TOL` of max |ref|, ms per image; `calc_losses_on_images`' metric in
+   its three modes over 2 x 16 pairs (card vs CPU); `create_inversion_animation`'s
+   render loop from a numpy-format e4e checkpoint (IR-SE-50, SG3-R 1024)
+   through `load_encoder`: 3 latents with landmarks transforms, 2 x 25
+   frames in chunks of 8, 14 launches a chunk, ms per frame, peak memory,
+   and kernel #1 at batch 1 in each layer's dtype; `eval_inversion_fidelity`'s
+   port half at its defaults (SG3-R 1024 fp32, IR-SE-50 e4e from a
+   reference-format state, 4 targets, 3 iterations): 14 launches a decode,
+   s per run, LPIPS of the reconstructions; (b) `SetGAN` at
+   `scripts/train_setgan_stem.sh`'s recipe at 256^2 (SG3-T, channel base
+   16384, max 256, 7 layers; IR-SE-50 e4e encoder; batch 16, references 4-7
+   of 7, candidates 1-4 of 4, no mean-centring, 4 heads, 2 attention
+   layers), its sets drawn by `ImageMultiSetGenerator` from seeded renders
+   held in memory: one forward as the trainer's G step makes it (encoder in
+   eval, no grad), 7 launches a call, ms per call, candidate images/s, peak
+   memory, one traced call (idle share; the encoder's, StyleAttention's and
+   the decoder's host and device time); kernel #1 on SG3-T 256's layers at
+   batch 64 against its plain version, timed beside it and its bound, and
+   at batch 1; gates: the fp32 forward at batch 2 through the kernels
+   against ``impl="ref"`` within `IMAGE_TOL`, padded reference slots filled
+   with another image within `PAD_TOL` (which unmasking them must exceed),
+   the sampler's batch again from its seed; then the pretrained recipe's
+   ReStyle-encoder mode (1 iteration, mean-centred): 14 launches, finite.
 
 PyTorch's TF32 flags stay at their defaults: matmuls run in fp32 by
 default, and the port holds its cuDNN convs to fp32 itself (`device.conv2d`;
@@ -311,16 +337,21 @@ def encoder_work(encoder: torch.nn.Module, x: torch.Tensor):
         sum(flops)
 
 
-def layer_rows(dev, card, layers, layer_call, kernel_call, batch, fp32, seed, what):
+def layer_rows(dev, card, layers, layer_call, kernel_call, batch, fp32, seed, what,
+               plain_chunk=None):
     """Kernel #1 on the 14 layers at ``batch``, as a path gives them to it: in
     the fp32 route (``fp32``) or each layer's own dtype. Images 0 and
     batch - 1 of the kernel's output are held against the plain version on
     the same inputs (upcast, as in phase 3), then the kernel is timed beside
     its bound (phase 5's: a bf16 radial layer's down pass at the tensor-core
-    rate). Returns (ms, bound ms, max abs err)."""
+    rate). With ``plain_chunk`` the plain version is timed too, on the whole
+    batch in calls of ``plain_chunk`` images (its x`up` intermediate stays
+    below 2^31 elements), and each layer gets a line. Returns (ms, bound ms,
+    max abs err, plain ms or None)."""
     from stylegan3_editing_tpu_torch.ops import flrelu_cuda
 
     total = bound = max_err = 0.0
+    plain = 0.0 if plain_chunk else None
     for i, s in enumerate(layers):
         dtype = torch.bfloat16 if s.use_bf16 and not fp32 else torch.float32
         gen = torch.Generator(device=dev).manual_seed(seed + i)
@@ -337,19 +368,35 @@ def layer_rows(dev, card, layers, layer_call, kernel_call, batch, fp32, seed, wh
                 raise SystemExit(f"kernel disagrees with the plain version on {s.name}, "
                                  f"{what}, batch {batch}, image {j}")
             del ref, err
-        total += time_ms(lambda: kernel_call(s, x, b), 5)
+        k_ms = time_ms(lambda: kernel_call(s, x, b), 5)
         nbytes, up_flops, down_flops = flrelu_work(
             tuple(x.shape), tuple(out.shape), s.up_factor, len(s.up_filter),
             s.down_filter.shape[0], s.down_filter.ndim == 2, x.element_size())
         down_rate = TC_FLOPS if flrelu_cuda.mma_down(dtype, s.down_filter) else FP32_FLOPS
-        bound += max(nbytes / HBM_BYTES_PER_S,
-                     up_flops / FP32_FLOPS + down_flops / down_rate) * 1e3
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, (
+            up_flops / FP32_FLOPS + down_flops / down_rate) * 1e3
+        total, bound = total + k_ms, bound + max(bytes_ms, ops_ms)
+        if plain_chunk:
+            def plain_batch():
+                for n in range(0, batch, plain_chunk):
+                    layer_call(s, x[n:n + plain_chunk], b, impl="ref")
+
+            p_ms = time_ms(plain_batch, 2, warmup=1)
+            plain += p_ms
+            print(f"time {s.name} {str(dtype)[6:]} {what} batch {batch}, up {s.up_factor}, "
+                  f"{len(s.up_filter)}-tap up, {s.down_filter.shape[0]}-tap "
+                  f"{'2-D' if s.down_filter.ndim == 2 else 'separable'} down, "
+                  f"{s.out_channels} channels: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                  f"bound {max(bytes_ms, ops_ms):.4f} ms "
+                  f"({'operations' if ops_ms > bytes_ms else 'bytes'}: {nbytes / 1e6:.1f} MB, "
+                  f"{(up_flops + down_flops) / 1e9:.2f} GFLOP) {card}")
         del x, b, out
     torch.cuda.empty_cache()
+    plain_text = f", plain {plain:.4f} ms" if plain_chunk else ""
     print(f"kernel #1, {what}: {len(layers)} layers at batch {batch}, images 0 and {batch - 1} "
           f"of each against the plain version ok (max abs err {max_err:.3e}); "
-          f"{total:.4f} ms a call, alone (bound {bound:.4f} ms) {card}")
-    return total, bound, max_err
+          f"{total:.4f} ms a call, alone (bound {bound:.4f} ms){plain_text} {card}")
+    return total, bound, max_err, plain
 
 
 def device_trace(fn, model=None, ranges=()):
@@ -1987,6 +2034,371 @@ def restyle_training_phase(dev, card, n_layers):
     return peak
 
 
+EVAL_TOL = 1e-4  # LPIPS and MS-SSIM, card vs CPU, of max |ref|: fp32 sum order (SCORER_TOL's)
+PAD_TOL = 1e-5   # a padded reference slot's contents, of max |image|: nothing but rounding
+EVAL_BATCH, EVAL_PAIRS = 8, 16
+ANIMATION_FRAMES, ANIMATION_BATCH = 25, 8      # create_inversion_animation's defaults
+FIDELITY_NUM, FIDELITY_ITERS = 4, 3            # eval_inversion_fidelity's defaults
+SETGAN_BATCH, SETGAN_REFS, SETGAN_CANDS = 16, (4, 7), (1, 4)  # train_setgan_stem.sh
+PLAIN_CHUNK = 8  # images per plain-version call in phase 15's layer rows
+
+
+def irse_reference_state(n_styles: int, seed: int) -> dict:
+    """A ReStyle-e4e IR-SE-50 encoder's state dict in the reference's naming
+    (``input_layer``, ``body.N.res_layer``/``shortcut_layer``, ``styles.J``),
+    from seeded weights: convs and linears normal with std 1/sqrt(fan_in),
+    batch norms with non-trivial statistics, PReLU slopes near 0.25."""
+    from stylegan3_editing_tpu_torch.models.backbones.irse import get_blocks
+
+    gen = torch.Generator().manual_seed(seed)
+    state = {}
+
+    def arr(*shape):
+        z = torch.randn(shape, generator=gen)
+        return z / math.sqrt(math.prod(shape[1:])) if len(shape) in (2, 4) else z
+
+    def bn(prefix, c):
+        state[f"{prefix}.weight"] = 1 + 0.1 * arr(c)
+        state[f"{prefix}.bias"] = 0.1 * arr(c)
+        state[f"{prefix}.running_mean"] = 0.1 * arr(c)
+        state[f"{prefix}.running_var"] = 0.5 + arr(c).abs()
+        state[f"{prefix}.num_batches_tracked"] = torch.tensor(3)
+
+    state["input_layer.0.weight"] = arr(64, 6, 3, 3)  # image and average image
+    bn("input_layer.1", 64)
+    state["input_layer.2.weight"] = 0.25 + 0.05 * arr(64)
+    for idx, spec in enumerate(s for stage in get_blocks(50) for s in stage):
+        p = f"body.{idx}"
+        if spec.in_channel != spec.depth:
+            state[f"{p}.shortcut_layer.0.weight"] = arr(spec.depth, spec.in_channel, 1, 1)
+            bn(f"{p}.shortcut_layer.1", spec.depth)
+        bn(f"{p}.res_layer.0", spec.in_channel)
+        state[f"{p}.res_layer.1.weight"] = arr(spec.depth, spec.in_channel, 3, 3)
+        state[f"{p}.res_layer.2.weight"] = 0.25 + 0.05 * arr(spec.depth)
+        state[f"{p}.res_layer.3.weight"] = arr(spec.depth, spec.depth, 3, 3)
+        bn(f"{p}.res_layer.4", spec.depth)
+        state[f"{p}.res_layer.5.fc1.weight"] = arr(spec.depth // 16, spec.depth, 1, 1)
+        state[f"{p}.res_layer.5.fc2.weight"] = arr(spec.depth, spec.depth // 16, 1, 1)
+    for j in range(n_styles):
+        for k in range(4):
+            state[f"styles.{j}.convs.{2 * k}.weight"] = arr(512, 512, 3, 3)
+            state[f"styles.{j}.convs.{2 * k}.bias"] = 0.1 * arr(512)
+        state[f"styles.{j}.linear.weight"] = arr(512, 512)
+        state[f"styles.{j}.linear.bias"] = 0.1 * arr(512)
+    return state
+
+
+class RenderedClasses:
+    """The duck-typed dataset `ImageMultiSetGenerator` samples: classes of
+    seeded renders held in memory (the card's machine has no Pillow)."""
+
+    def __init__(self, images: np.ndarray, n_classes: int):
+        per = images.shape[0] // n_classes
+        self.images, self.resolution = images, images.shape[1]
+        self.classes = list(range(n_classes))
+        self.class_to_paths = {c: list(range(c * per, (c + 1) * per)) for c in self.classes}
+
+    def load(self, path) -> np.ndarray:
+        return self.images[path]
+
+
+def evaluation_setgan_phase(dev, card, layers, layer_call, kernel_call) -> float:
+    """Phase 15: (a) the evaluation side: LPIPS on its three trunks and
+    MS-SSIM card vs CPU, `calc_losses_on_images`' metric in its three modes,
+    `create_inversion_animation`'s render loop from a numpy-format
+    checkpoint, `eval_inversion_fidelity`'s port half at its defaults; (b)
+    the SetGAN generator at `train_setgan_stem.sh`'s recipe at 256²: a
+    forward as the trainer's G step makes it, timed and traced, kernel #1
+    per layer of SG3-T 256 at batch 64 and 1, the fp32 forward against
+    ``impl="ref"``, the padded-slot and the sampler's seed gates, and the
+    pretrained recipe's ReStyle-encoder mode. Returns #1's largest error
+    against its plain version."""
+    import dataclasses
+    import tempfile
+
+    from stylegan3_editing_tpu_torch.criteria import LPIPS, msssim
+    from stylegan3_editing_tpu_torch.models.encoders import RestyleNet
+    from stylegan3_editing_tpu_torch.models.sg3 import (build_synthesis_layout, sg3_r_config,
+                                                        sg3_t_config)
+    from stylegan3_editing_tpu_torch.models.sg3.from_jax import to_jax_variables
+    from stylegan3_editing_tpu_torch.ops import flrelu_cuda
+    from stylegan3_editing_tpu_torch.runtime.checkpoint import save_pytree
+    from stylegan3_editing_tpu_torch.scripts import (calc_losses_on_images,
+                                                     create_inversion_animation,
+                                                     eval_inversion_fidelity as fid)
+    from stylegan3_editing_tpu_torch.setgan import ImageMultiSetGenerator, SetGAN
+    from stylegan3_editing_tpu_torch.training.options import E4eTrainOptions
+    from stylegan3_editing_tpu_torch.utils.common import make_transform
+    from stylegan3_editing_tpu_torch.utils.inference_utils import load_encoder
+
+    def finite(*ts):
+        return all(bool(torch.isfinite(t).all()) for t in ts)
+
+    def sync_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    max_err = 0.0
+    # (a) LPIPS on each trunk and MS-SSIM: card vs CPU, ms per image.
+    gen = torch.Generator().manual_seed(150)
+    x = torch.rand((EVAL_BATCH, 256, 256, 3), generator=gen) * 2 - 1
+    y = (x + 0.3 * torch.randn(x.shape, generator=gen)).clamp(-1, 1)
+    xd, yd = x.to(dev), y.to(dev)
+    with torch.inference_mode():
+        for net in ("alex", "vgg", "squeeze", "msssim"):
+            if net == "msssim":
+                cpu_fn = gpu_fn = lambda a, b: msssim(a, b, size_average=False)
+            else:
+                cpu_fn = LPIPS(net, device="cpu",
+                               generator=torch.Generator().manual_seed(151)).eval().per_image
+                gpu_fn = LPIPS(net, device=dev,
+                               generator=torch.Generator().manual_seed(151)).eval().per_image
+            ref, got = cpu_fn(x, y), gpu_fn(xd, yd).cpu()
+            err, tol = float((got - ref).abs().max()), EVAL_TOL * float(ref.abs().max())
+            ms = time_ms(lambda: gpu_fn(xd, yd), 5) / EVAL_BATCH
+            print(f"evaluation {net}: batch {EVAL_BATCH} at 256^2, card vs CPU max abs err "
+                  f"{err:.3e} (tol {tol:.3e}: {EVAL_TOL:g} of max |ref| "
+                  f"{float(ref.abs().max()):.4g}); mean {float(got.mean()):.6f}; "
+                  f"{ms:.4f} ms per image {card}")
+            if not (err <= tol and finite(got)):
+                raise SystemExit(f"{net} on the card disagrees with the CPU")
+            del cpu_fn, gpu_fn
+        torch.cuda.empty_cache()
+
+        # calc_losses_on_images' metric: two directories of 16 pairs, batches of 4.
+        pairs = []
+        for d, noise in enumerate((0.2, 0.05)):
+            g = torch.Generator().manual_seed(152 + d)
+            gt = torch.rand((EVAL_PAIRS, 256, 256, 3), generator=g) * 2 - 1
+            pairs.append(((gt + noise * torch.randn(gt.shape, generator=g)).clamp(-1, 1), gt))
+        batch_size = calc_losses_on_images.LossCalcOptions().batch_size
+        for mode in calc_losses_on_images.MODES:
+            metrics = {d: calc_losses_on_images.make_metric(mode, d) for d in ("cpu", dev)}
+            line, ms_total = [], 0.0
+            for d, (out, gt) in enumerate(pairs):
+                scores, refs = [], []
+                for n in range(0, EVAL_PAIRS, batch_size):
+                    a, b = out[n:n + batch_size], gt[n:n + batch_size]
+                    s, sec = sync_s(lambda: metrics[dev](a.to(dev), b.to(dev)))
+                    ms_total += sec * 1e3
+                    scores.append(s.cpu())
+                    refs.append(metrics["cpu"](a, b))
+                s, r = torch.cat(scores), torch.cat(refs)
+                err, tol = float((s - r).abs().max()), EVAL_TOL * float(r.abs().max())
+                if not (finite(s) and err <= tol):
+                    raise SystemExit(f"calc_losses_on_images {mode}: the card disagrees with "
+                                     f"the CPU ({err:.3e} > {tol:.3e}) or a score is not finite")
+                line.append(f"step_{d + 1} {float(s.mean()):.6f} ± {float(s.std(unbiased=False)):.6f}"
+                            f" (n {len(s)}, card vs CPU {err:.3e})")
+            print(f"calc_losses_on_images {mode}: {'; '.join(line)}; "
+                  f"{ms_total / (2 * EVAL_PAIRS):.4f} ms per pair {card}")
+            del metrics
+        del pairs, x, y, xd, yd
+        torch.cuda.empty_cache()
+
+    # create_inversion_animation from a numpy-format e4e checkpoint (IR-SE-50, SG3-R 1024).
+    cfg_r = sg3_r_config(1024)
+    with tempfile.TemporaryDirectory() as tmp:
+        model = RestyleNet(cfg_r, "ProgressiveBackboneEncoder", n_styles=cfg_r.num_ws,
+                           device=dev, generator=torch.Generator().manual_seed(10))
+        seeded_batch_norms(model.encoder, 20)
+        with torch.no_grad():
+            z = torch.randn((256, cfg_r.z_dim), generator=torch.Generator().manual_seed(30))
+            model.decoder.mapping.w_avg.copy_(model.decoder.map(z.to(dev))[:, 0].mean(0))
+        ckpt = Path(tmp) / "e4e_ckpt"
+        _, save_s = sync_s(lambda: save_pytree(ckpt, {"variables": to_jax_variables(model)}, {
+            "opts": dataclasses.asdict(E4eTrainOptions(output_size=1024)), "is_e4e": True}))
+        del model
+        torch.cuda.empty_cache()
+        loaded, _ = load_encoder(ckpt, device=dev)
+    decoder = loaded.decoder
+    w_avg = decoder.mapping.w_avg.cpu().numpy()
+    rng = np.random.RandomState(155)
+    latents = [w_avg + 0.5 * rng.randn(cfg_r.num_ws, 512).astype(np.float32) for _ in range(3)]
+    transforms = [make_transform((0.05 * (i - 1), -0.03 * i), 5.0 * (i - 1)).astype(np.float32)
+                  for i in range(3)]
+    torch.cuda.reset_peak_memory_stats()
+    flrelu_cuda.reset_launches()
+    frames, sec = sync_s(lambda: create_inversion_animation.render_animation(
+        decoder, latents, transforms, ANIMATION_FRAMES, ANIMATION_BATCH))
+    launches = dict(flrelu_cuda.launches)
+    chunks = 2 * math.ceil(ANIMATION_FRAMES / ANIMATION_BATCH)
+    print(f"create_inversion_animation: checkpoint written in {save_s:.2f} s and read by "
+          f"load_encoder; 3 latents, {len(frames)} frames {frames[0].shape} {frames[0].dtype} "
+          f"in {chunks} chunks of up to {ANIMATION_BATCH}: launches {launches}; "
+          f"{sec * 1e3 / len(frames):.4f} ms per frame, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB {card}")
+    if launches != {"filtered_lrelu_fwd": len(layers) * chunks, "filtered_lrelu_bwd": 0,
+                    **NO_FIR}:
+        raise SystemExit("expected 14 forward launches per animation chunk")
+    res = cfg_r.img_resolution
+    if len(frames) != 2 * ANIMATION_FRAMES or frames[0].shape != (res, res, 3) or \
+            frames[0].dtype != np.uint8 or np.array_equal(frames[0], frames[-1]):
+        raise SystemExit("wrong animation frames")
+    del frames
+    err = layer_rows(dev, card, layers, layer_call, kernel_call, 1, False, 156,
+                     "animation's remainder chunk")[2]
+    max_err = max(max_err, err)
+
+    # eval_inversion_fidelity's port half at its defaults, from reference-format states.
+    cfg_f = sg3_r_config(1024, use_bf16=False)
+    gen_state = {k: v.numpy() for k, v in reference_state(decoder).items()}
+    enc_state = {k: v.numpy() for k, v in irse_reference_state(cfg_f.num_ws, 157).items()}
+    del loaded, decoder
+    torch.cuda.empty_cache()
+    model = fid.port_restyle_from_states(gen_state, enc_state, cfg_f, device=dev)
+    lpips = LPIPS("alex", device=dev, generator=torch.Generator().manual_seed(2)).eval()
+    del gen_state, enc_state
+    flrelu_cuda.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+
+    def fidelity_run():
+        targets = fid.synthesize_targets(model, FIDELITY_NUM, 0)
+        recon, _, _ = fid.invert(model, targets, FIDELITY_ITERS)
+        return recon, fid.lpips_per_image(lpips, recon, targets)
+
+    (recon, lp), sec = sync_s(fidelity_run)
+    launches = dict(flrelu_cuda.launches)
+    print(f"eval_inversion_fidelity (port half): SG3-R 1024 fp32, IR-SE-50 e4e, "
+          f"{FIDELITY_NUM} targets, {FIDELITY_ITERS} iterations: {sec:.4f} s a run, launches "
+          f"{launches}, reconstructions {tuple(recon.shape)}, LPIPS-alex of each "
+          f"{np.array2string(lp, precision=6)} (mean {float(np.mean(lp)):.6f}), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB {card}")
+    if launches != {"filtered_lrelu_fwd": len(layers) * (2 + FIDELITY_ITERS),
+                    "filtered_lrelu_bwd": 0, **NO_FIR}:
+        raise SystemExit("expected 14 forward launches per decode of the fidelity run")
+    if tuple(recon.shape) != (FIDELITY_NUM, 256, 256, 3) or not (
+            finite(recon) and np.isfinite(lp).all()):
+        raise SystemExit("eval_inversion_fidelity: wrong or non-finite reconstructions")
+    del model, lpips, recon
+    torch.cuda.empty_cache()
+
+    # (b) The SetGAN generator at train_setgan_stem.sh's recipe, RES = 256.
+    cfg_t = sg3_t_config(256, channel_base=16384, channel_max=256, num_layers=7)
+    t_layers = [s for s in build_synthesis_layout(cfg_t).layers if s.up_filter is not None]
+    G = SetGAN(cfg_t, n_heads=4, attn_layers=2, mean_center=False, restyle_mode="none",
+               encoder_type="ProgressiveBackboneEncoder", remat_encoder=True, device=dev,
+               generator=torch.Generator().manual_seed(160)).eval()
+    seeded_batch_norms(G.encoder, 161)
+    with torch.no_grad():
+        z = torch.randn((256, cfg_t.z_dim), generator=torch.Generator().manual_seed(162))
+        G.decoder.mapping.w_avg.copy_(G.decoder.map(z.to(dev))[:, 0].mean(0))
+        pool = G.decoder(torch.randn((18, cfg_t.z_dim), generator=torch.Generator().manual_seed(
+            163)).to(dev), truncation_psi=0.7).float().cpu().numpy()
+    data = RenderedClasses(pool, 3)
+
+    def sampler():
+        return ImageMultiSetGenerator(data, SETGAN_BATCH, reference_range=SETGAN_REFS,
+                                      candidate_range=SETGAN_CANDS, data_augmentation=True,
+                                      seed=0)
+
+    t0 = time.perf_counter()
+    batch = sampler().sample_batch()
+    sample_s = time.perf_counter() - t0
+    again = sampler().sample_batch()
+    same = all(np.array_equal(batch[k], again[k]) for k in batch) and sorted(batch) == \
+        sorted(again)
+    print(f"setgan sampler: batch {SETGAN_BATCH}, references {batch['ref_mask'].sum(1).tolist()}"
+          f" of {SETGAN_REFS[1]}, candidates {batch['cand_mask'].sum(1).tolist()} of "
+          f"{SETGAN_CANDS[1]}, set-consistent flips and rotations, {sample_s:.3f} s on the host; "
+          f"the same batch again from the seed: {same}")
+    if not same:
+        raise SystemExit("ImageMultiSetGenerator gave another batch from the same seed")
+    ref = torch.from_numpy(batch["reference"]).to(dev)
+    mask = torch.from_numpy(batch["ref_mask"]).to(dev)
+    zs = torch.randn((SETGAN_BATCH, SETGAN_CANDS[1], cfg_t.z_dim),
+                     generator=torch.Generator().manual_seed(164)).to(dev)
+    latent_avg = G.decoder.mapping.w_avg.clone()
+    n_valid = int(batch["cand_mask"].sum())
+
+    def run_g():
+        return G(ref, zs, latent_avg=latent_avg, ref_mask=mask, return_latents=True)
+
+    with torch.no_grad():
+        flrelu_cuda.reset_launches()
+        imgs, ws = run_g()
+        torch.cuda.synchronize()
+        launches = dict(flrelu_cuda.launches)
+        print(f"setgan forward: references {tuple(ref.shape)}, z {tuple(zs.shape)} -> images "
+              f"{tuple(imgs.shape)}, latents {tuple(ws.shape)}; launches {launches} per call")
+        if launches != {"filtered_lrelu_fwd": len(t_layers), "filtered_lrelu_bwd": 0,
+                        **NO_FIR}:
+            raise SystemExit(f"expected {len(t_layers)} forward launches per SetGAN call")
+        res_t = cfg_t.img_resolution
+        if tuple(imgs.shape) != (SETGAN_BATCH, SETGAN_CANDS[1], res_t, res_t, 3) or not finite(
+                imgs, ws):
+            raise SystemExit("SetGAN: wrong or non-finite images")
+        del imgs, ws
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(run_g, 3, warmup=1)
+        print(f"setgan forward: {ms:.4f} ms a call, {n_valid * 1e3 / ms:.4f} candidate images/s "
+              f"({n_valid} valid of {SETGAN_BATCH * SETGAN_CANDS[1]} slots), peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB {card}")
+        t = device_trace(run_g, ranges=[("encoder", G.encoder, "forward"),
+                                        ("style_attn", G.style_attn, "forward"),
+                                        ("decoder", G.decoder, "synthesize")])
+        print_trace("setgan forward", t, card)
+
+        # Gates at batch 2: fp32 through the kernels vs impl="ref"; padded slots.
+        r2, m2, z2 = ref[:2].clone(), mask[:2].clone(), zs[:2]
+        m2[:, -2:] = False
+        r2[~m2] = 0
+        a = G(r2, z2, latent_avg=latent_avg, ref_mask=m2, force_fp32=True)
+        r_ = G(r2, z2, latent_avg=latent_avg, ref_mask=m2, force_fp32=True, impl="ref")
+        img_err = float((a - r_).abs().max())
+        other = r2.clone()
+        other[~m2] = torch.from_numpy(pool[:1]).to(dev).flip(2)
+        p = G(other, z2, latent_avg=latent_avg, ref_mask=m2, force_fp32=True)
+        pad_err = float((p - a).abs().max())
+        moved = float((G(other, z2, latent_avg=latent_avg, ref_mask=torch.ones_like(m2),
+                         force_fp32=True) - a).abs().max())
+        scale = float(r_.abs().max())
+        print(f"setgan batch 2 fp32, kernels vs impl='ref': max abs err {img_err:.3e} (tol "
+              f"{IMAGE_TOL:g}, max |ref| {scale:.4g}); padded reference slots filled with "
+              f"another image: max abs change {pad_err:.3e} (tol {PAD_TOL * scale:.3e}); the "
+              f"same slots unmasked move it by {moved:.3e}")
+        if not (img_err <= IMAGE_TOL and pad_err <= PAD_TOL * scale and moved > PAD_TOL * scale):
+            raise SystemExit("SetGAN: the kernels disagree with impl='ref', or a padded slot "
+                             "changed a candidate")
+        del a, r_, p, other
+
+    # Kernel #1 on SG3-T 256's layers: batch 64 (B·C) with the plain version's
+    # time, and batch 1 (the ReStyle-mode average render).
+    err = layer_rows(dev, card, t_layers, layer_call, kernel_call,
+                     SETGAN_BATCH * SETGAN_CANDS[1], False, 170, "SG3-T 256",
+                     plain_chunk=PLAIN_CHUNK)[2]
+    max_err = max(max_err, err, layer_rows(dev, card, t_layers, layer_call, kernel_call, 1,
+                                           False, 180, "SG3-T 256 average render")[2])
+    del G
+    torch.cuda.empty_cache()
+
+    # The pretrained recipe: ReStyle-encoder mode, one iteration, mean-centred.
+    G2 = SetGAN(cfg_t, n_heads=4, attn_layers=2, mean_center=True, restyle_mode="encoder",
+                restyle_iters=1, encoder_type="ProgressiveBackboneEncoder", device=dev,
+                generator=torch.Generator().manual_seed(165)).eval()
+    seeded_batch_norms(G2.encoder, 166)
+    with torch.no_grad():
+        z = torch.randn((256, cfg_t.z_dim), generator=torch.Generator().manual_seed(167))
+        G2.decoder.mapping.w_avg.copy_(G2.decoder.map(z.to(dev))[:, 0].mean(0))
+        flrelu_cuda.reset_launches()
+        (imgs, ws), sec = sync_s(lambda: G2(ref, zs, latent_avg=G2.decoder.mapping.w_avg,
+                                             ref_mask=mask, return_latents=True))
+        launches = dict(flrelu_cuda.launches)
+    print(f"setgan restyle_mode encoder, 1 iteration, mean-centred: images {tuple(imgs.shape)}, "
+          f"launches {launches} (the batch-1 average render and the batch-"
+          f"{SETGAN_BATCH * SETGAN_CANDS[1]} decode), {sec * 1e3:.4f} ms, finite "
+          f"{finite(imgs, ws)} {card}")
+    if launches != {"filtered_lrelu_fwd": 2 * len(t_layers), "filtered_lrelu_bwd": 0,
+                    **NO_FIR} or not finite(imgs, ws):
+        raise SystemExit("SetGAN restyle mode: wrong launches or non-finite outputs")
+    del G2, imgs, ws, ref, zs
+    torch.cuda.empty_cache()
+    return max_err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card",
@@ -2509,6 +2921,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     now = time.perf_counter()
     print(f"elapsed: phase 14 {now - t14:.1f} s, the script {now - t_start:.1f} s")
+
+    # 15. The evaluation side and the SetGAN generator.
+    t15 = time.perf_counter()
+    max_err = max(max_err, evaluation_setgan_phase(dev, card, layers, layer_call, kernel_call))
+    torch.cuda.empty_cache()
+    now = time.perf_counter()
+    print(f"elapsed: phase 15 {now - t15:.1f} s, the script {now - t_start:.1f} s")
 
     def fir_entry(name, replaces):
         row = fir_rows[name, FIR_SHAPES[1], torch.bfloat16]

@@ -2,14 +2,14 @@
 
 Counterpart of the JAX package's `criteria/lpips.py` (reference
 criteria/lpips/lpips.py): z-scored input, unit-normalised features at the
-AlexNet taps, squared differences, 1×1 linear heads (initialised to the
-channel mean, 1/C), spatial mean, sum over layers and batch / batch.
-Only the AlexNet trunk is ported; ``vgg`` and ``squeeze`` raise.
+trunk's taps (AlexNet, VGG16 or SqueezeNet-1.1: 5, 5 or 7 of them), squared
+differences, 1×1 linear heads (initialised to the channel mean, 1/C),
+spatial mean, sum over layers and batch / batch.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -19,6 +19,14 @@ from ..device import DeviceLike, resolve_device
 from ..models.backbones.alexnet import N_CHANNELS as ALEX_CHANNELS
 from ..models.backbones.alexnet import AlexNetFeatures
 from ..models.backbones.common import put
+from ..models.backbones.squeezenet import N_CHANNELS as SQUEEZE_CHANNELS
+from ..models.backbones.squeezenet import SqueezeNetFeatures
+from ..models.backbones.vgg import N_CHANNELS as VGG_CHANNELS
+from ..models.backbones.vgg import VGG16Features
+
+TRUNKS = {"alex": (AlexNetFeatures, ALEX_CHANNELS),
+          "vgg": (VGG16Features, VGG_CHANNELS),
+          "squeeze": (SqueezeNetFeatures, SQUEEZE_CHANNELS)}
 
 _SHIFT = (-0.030, -0.088, -0.188)
 _SCALE = (0.458, 0.448, 0.450)
@@ -41,29 +49,41 @@ class LPIPS(nn.Module):
     def __init__(self, net_type: str = "alex", device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if net_type != "alex":
-            raise NotImplementedError(
-                f"LPIPS net_type={net_type!r} is not ported yet (ROADMAP Queue 1 #7); "
-                "only 'alex' is")
+        if net_type not in TRUNKS:
+            raise NotImplementedError(net_type)
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        self.net = AlexNetFeatures(generator=generator)
-        for i, c in enumerate(ALEX_CHANNELS):
+        trunk, channels = TRUNKS[net_type]
+        self.net = trunk(generator=generator)
+        for i, c in enumerate(channels):
             self.register_parameter(f"lin{i}", nn.Parameter(torch.full((1, 1, c, 1), 1.0 / c)))
         self.register_buffer("shift", torch.tensor(_SHIFT), persistent=False)
         self.register_buffer("scale", torch.tensor(_SCALE), persistent=False)
         self.to(device)
 
-    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    def _layer_scores(self, x: torch.Tensor, y: torch.Tensor) -> List[torch.Tensor]:
+        """Per tap, each image's head-weighted spatial mean, ``[N]``."""
         feats_x = self.net((x - self.shift) / self.scale)
         feats_y = self.net((y - self.shift) / self.scale)
-        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        scores = []
         for i, (fx, fy) in enumerate(zip(feats_x, feats_y)):
             d = (_normalize_activation(fx) - _normalize_activation(fy)).square()
-            score = d @ getattr(self, f"lin{i}")[0, 0, :, 0]
-            total = total + score.mean((1, 2)).sum()
+            scores.append((d @ getattr(self, f"lin{i}")[0, 0, :, 0]).mean((1, 2)))
+        return scores
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for score in self._layer_scores(x, y):
+            total = total + score.sum()
         return total / x.shape[0]
+
+    def per_image(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """``[N]``: each pair's distance, as a batch-1 call would give it."""
+        total = torch.zeros((x.shape[0],), dtype=torch.float32, device=x.device)
+        for score in self._layer_scores(x, y):
+            total = total + score
+        return total
 
 
 def convert_lpips_linear_state(state: Mapping) -> dict:

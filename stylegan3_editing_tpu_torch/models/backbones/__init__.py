@@ -9,10 +9,13 @@ from .irse import IRSEBackbone, IRSEBody, convert_irse_state, get_blocks
 from .resnet import (BasicBlock, Bottleneck, ResNet34Body, ResNet50Features,
                      convert_bottleneck_stages_state, convert_resnet34_body_state,
                      convert_resnet50_state)
-from .vgg import VGG16Features, VGG19Features, VGGFeatures
+from .squeezenet import Fire, SqueezeNetFeatures, convert_squeezenet_state
+from .vgg import (VGG16Features, VGG19Features, VGGFeatures, convert_vgg16_state,
+                  convert_vgg19_state)
 
 __all__ = ["AlexNetFeatures", "convert_alexnet_state", "IRSEBackbone", "IRSEBody",
            "convert_irse_state", "get_blocks", "BasicBlock", "Bottleneck", "ResNet34Body",
            "ResNet50Features", "convert_resnet34_body_state",
            "convert_bottleneck_stages_state", "convert_resnet50_state", "VGGFeatures", "VGG16Features",
-           "VGG19Features"]
+           "VGG19Features", "convert_vgg16_state", "convert_vgg19_state", "Fire",
+           "SqueezeNetFeatures", "convert_squeezenet_state"]

@@ -33,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...device import DeviceLike, fp32_matmul, resolve_device
-from .common import Conv2d, Dense, dense_w, put
+from .common import Conv2d, Dense, LayerNorm, dense_w, put
 
 CONTEXT_LENGTH = 77
 VOCAB_SIZE = 49408
@@ -41,18 +41,6 @@ VOCAB_SIZE = 49408
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
-
-
-class LayerNorm(nn.Module):
-    """flax ``nn.LayerNorm`` over the last axis: ``scale``, ``bias``, eps 1e-6."""
-
-    def __init__(self, width: int):
-        super().__init__()
-        self.scale = nn.Parameter(torch.ones(width))
-        self.bias = nn.Parameter(torch.zeros(width))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x, (x.shape[-1],), self.scale, self.bias, eps=1e-6)
 
 
 class MultiheadAttention(nn.Module):

@@ -4,18 +4,20 @@ Counterpart of the JAX package's `models/backbones/vgg.py` (torchvision
 ``vgg16().features`` / ``vgg19().features``, taps after relu1_2 … relu5_3).
 Convs are named ``conv0 …`` in order with HWIO kernels, as the flax tree
 names them, and run through `device.conv2d` (full fp32 on the card).
+`convert_vgg16_state` / `convert_vgg19_state` read torchvision's weights
+(the batch-norm variants are not ported).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Mapping, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ...ops.image import max_pool2d
-from .common import Conv2d
+from .common import Conv2d, conv_w, put
 
 N_CHANNELS = (64, 128, 256, 512, 512)
 _STAGES = ((64, 64), (128, 128), (256, 256, 256), (512, 512, 512), (512, 512, 512))
@@ -55,3 +57,29 @@ def VGG16Features(**kw) -> VGGFeatures:
 
 def VGG19Features(**kw) -> VGGFeatures:
     return VGGFeatures(stages=_STAGES19, **kw)
+
+
+def _convert_vgg_state(state: Mapping, stages) -> dict:
+    """torchvision vggN state dict (``features.N.*``) → ``{"params": tree}``:
+    the convs sit at consecutive ``features`` indices, each followed by its
+    ReLU, with a max pool between stages."""
+    params: dict = {}
+    ours = theirs = 0
+    for stage_i, widths in enumerate(stages):
+        if stage_i > 0:
+            theirs += 1  # the MaxPool2d entry
+        for _ in widths:
+            put(params, f"conv{ours}/kernel", conv_w(state[f"features.{theirs}.weight"]))
+            put(params, f"conv{ours}/bias", state[f"features.{theirs}.bias"])
+            ours, theirs = ours + 1, theirs + 2  # Conv2d + ReLU
+    return {"params": params}
+
+
+def convert_vgg16_state(state: Mapping) -> dict:
+    """torchvision vgg16 state dict (``features.N.*``) → params."""
+    return _convert_vgg_state(state, _STAGES)
+
+
+def convert_vgg19_state(state: Mapping) -> dict:
+    """torchvision vgg19 state dict (``features.N.*``) → params."""
+    return _convert_vgg_state(state, _STAGES19)

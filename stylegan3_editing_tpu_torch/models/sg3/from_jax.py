@@ -6,7 +6,11 @@ dicts of arrays (numpy, or anything `np.asarray` reads). The port names its
 parameters and buffers after the flax paths (``synthesis.L0_36_1024.weight``)
 and keeps the same layouts (HWIO conv weights, ``[out, in]`` dense
 weights), so each leaf copies into the tensor of the same dotted name, and
-`to_jax_variables` nests them back under their collections. This module
+`to_jax_variables` nests them back under their collections. That holds
+for every module of the port named after its flax paths: a `Generator`, a
+`RestyleNet`, and a `SetGAN` (``encoder`` with its batch statistics,
+``style_attn.attn_{i}`` / ``style_concat_{i}``, ``decoder`` with its
+buffers and EMAs). This module
 needs numpy only; the port still imports nothing of JAX.
 """
 

@@ -12,8 +12,6 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import numpy as np
-import scipy.signal
-import scipy.special
 
 
 def design_lowpass_filter(
@@ -27,8 +25,12 @@ def design_lowpass_filter(
 
     Returns a 1-D separable Kaiser-windowed sinc (`numtaps` taps), a 2-D
     radially symmetric jinc filter (`numtaps`×`numtaps`), or ``None`` for the
-    identity (numtaps == 1).
+    identity (numtaps == 1). SciPy is imported here, when a generator is
+    built, so that modules importing the ops package need no SciPy.
     """
+    import scipy.signal
+    import scipy.special
+
     assert numtaps >= 1
     if numtaps == 1:
         return None

@@ -19,10 +19,14 @@ def _hw(size: Size):
     return (size, size) if isinstance(size, int) else tuple(size)
 
 
-def max_pool2d(x: torch.Tensor, window: int, stride: int, padding: int = 0) -> torch.Tensor:
+def max_pool2d(x: torch.Tensor, window: int, stride: int, padding: int = 0,
+               ceil_mode: bool = False) -> torch.Tensor:
     """Max pooling over NHWC with torch ``MaxPool2d`` semantics; ``padding``
-    pads each side with -inf (so a padded cell never wins)."""
-    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride, padding)
+    pads each side with -inf (so a padded cell never wins). ``ceil_mode``
+    keeps the last partial window, less one that would start in the right
+    padding (torch's rule, which the JAX package reproduces with an extra
+    -inf pad)."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride, padding, ceil_mode=ceil_mode)
     return y.permute(0, 2, 3, 1)
 
 

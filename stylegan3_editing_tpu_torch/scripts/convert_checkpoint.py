@@ -49,7 +49,7 @@ _CFG_KEYS = ("z_dim", "c_dim", "w_dim", "img_channels", "channel_base",
              "last_stopband_rel", "magnitude_ema_beta")
 # The kinds that wait for their modules (ROADMAP Queue 1).
 _NOT_PORTED = {"sg2_stem": "the SG2 stem of SetGAN (ROADMAP Queue 1 #9)",
-               "backbone": "the feature backbones' registry (ROADMAP Queue 1 #7 and #9)",
+               "backbone": "the feature backbones' registry (ROADMAP Queue 1 #9)",
                "class_embedding": "SetGAN's class embeddings (ROADMAP Queue 1 #9)"}
 
 

@@ -344,7 +344,7 @@ def test_convert_checkpoint_cli_encoder_matches_jax(source, tmp_path):
                                       gvars["ema"]["mapping"]["w_avg"])
 
 
-@pytest.mark.parametrize("kind,item", [("sg2_stem", "#9"), ("backbone", "#7"),
+@pytest.mark.parametrize("kind,item", [("sg2_stem", "#9"), ("backbone", "#9"),
                                        ("class_embedding", "#9")])
 def test_convert_checkpoint_names_what_the_other_kinds_wait_for(tmp_path, kind, item):
     with pytest.raises(NotImplementedError, match=item):

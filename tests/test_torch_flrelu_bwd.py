@@ -244,6 +244,13 @@ def test_lpips_alex_score_and_input_gradient_match_jax():
 
 
 def test_lpips_other_trunks_are_not_ported():
-    for net in ("vgg", "squeeze"):
-        with pytest.raises(NotImplementedError, match="Queue 1 #7"):
-            LPIPS(net, device="cpu")
+    """vgg and squeeze are ported (5 and 7 heads, each 1/C); any other trunk
+    still raises."""
+    for net, heads in (("vgg", (64, 128, 256, 512, 512)),
+                       ("squeeze", (64, 128, 256, 384, 384, 512, 512))):
+        lp = LPIPS(net, device="cpu")
+        assert [tuple(getattr(lp, f"lin{i}").shape) for i in range(len(heads))] == [
+            (1, 1, c, 1) for c in heads] and not hasattr(lp, f"lin{len(heads)}")
+        assert all(torch.all(getattr(lp, f"lin{i}") == 1.0 / c) for i, c in enumerate(heads))
+    with pytest.raises(NotImplementedError, match="resnet"):
+        LPIPS("resnet", device="cpu")

@@ -289,8 +289,22 @@ def _conv_calls():
                    for y_hat, latent in outputs)
         return loss, [p for _, p in coach.trainable]
 
+    def squeezenet():
+        from stylegan3_editing_tpu_torch.models.backbones import SqueezeNetFeatures
+
+        x = leaf(1, 35, 35, 3)
+        net = SqueezeNetFeatures(generator=torch.Generator().manual_seed(0))
+        return sum(f.square().mean() for f in net(x)), [x]
+
+    def ms_ssim():
+        from stylegan3_editing_tpu_torch.criteria import msssim
+
+        a, b = leaf(1, 48, 48, 3), leaf(1, 48, 48, 3)
+        return msssim(torch.tanh(a), torch.tanh(b), normalize="simple"), [a, b]
+
     return {"modulated_conv2d_3x3": modulated, "alexnet_Conv2d": alexnet, "upfirdn2d": fir,
-            "styleclip_mapper_step": mapper_step, "restyle_coach_step": restyle_coach_step}
+            "styleclip_mapper_step": mapper_step, "restyle_coach_step": restyle_coach_step,
+            "squeezenet": squeezenet, "msssim": ms_ssim}
 
 
 @pytest.mark.parametrize("op", sorted(_conv_calls()))
@@ -633,5 +647,58 @@ def test_restyle_training_entry_points_raise_without_a_card(monkeypatch, entry, 
             "train_restyle_e4e": lambda: train_restyle_e4e.main(
                 parse_dataclass(train_restyle_e4e.E4eCliOptions, args)),
             "moco_loss": MocoLoss}[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+
+
+def test_evaluation_and_setgan_modules_import_without_optional_packages():
+    """LPIPS' trunks, MS-SSIM, the three evaluation CLIs and SetGAN's set
+    transformer, generator and data sampler import with JAX, Pillow,
+    imageio, scipy and scikit-learn unavailable (the card machine lacks
+    the first three) and leave JAX unloaded."""
+    blocked = ("PIL", "imageio", "scipy", "sklearn", "cv2", "orbax", "jax", "flax")
+    code = ("import sys, json\n"
+            f"for name in {blocked!r}:\n"
+            "    sys.modules[name] = None\n"
+            "import stylegan3_editing_tpu_torch.criteria.ms_ssim, "
+            "stylegan3_editing_tpu_torch.criteria.lpips, "
+            "stylegan3_editing_tpu_torch.models.backbones.squeezenet, "
+            "stylegan3_editing_tpu_torch.models.backbones.vgg, "
+            "stylegan3_editing_tpu_torch.scripts.calc_losses_on_images, "
+            "stylegan3_editing_tpu_torch.scripts.create_inversion_animation, "
+            "stylegan3_editing_tpu_torch.scripts.eval_inversion_fidelity, "
+            "stylegan3_editing_tpu_torch.setgan, "
+            "stylegan3_editing_tpu_torch.setgan.set_transformer, "
+            "stylegan3_editing_tpu_torch.setgan.model, "
+            "stylegan3_editing_tpu_torch.setgan.dataset\n"
+            "print(json.dumps(sorted(m for m in sys.modules if sys.modules[m] is not None "
+            f"and m.split('.')[0] in {blocked + ('stylegan3_editing_tpu',)!r})))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("entry", ["calc_losses_on_images", "create_inversion_animation",
+                                   "eval_inversion_fidelity", "setgan", "lpips_squeeze"])
+def test_evaluation_and_setgan_entry_points_raise_without_a_card(monkeypatch, entry, tmp_path):
+    """The three evaluation CLIs, `SetGAN` and LPIPS raise without a card
+    unless they are given ``device="cpu"``; the CLIs before they read a file."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from stylegan3_editing_tpu_torch.criteria import LPIPS
+    from stylegan3_editing_tpu_torch.scripts import (calc_losses_on_images,
+                                                     create_inversion_animation,
+                                                     eval_inversion_fidelity)
+    from stylegan3_editing_tpu_torch.setgan import SetGAN
+
+    call = {"calc_losses_on_images": lambda: calc_losses_on_images.main(
+                ["--output_path", str(tmp_path), "--gt_path", str(tmp_path)]),
+            "create_inversion_animation": lambda: create_inversion_animation.main(
+                ["--exp_dir", str(tmp_path / "exp"), "--latents_path", str(tmp_path / "no.npy")]),
+            "eval_inversion_fidelity": lambda: eval_inversion_fidelity.main(
+                ["--reference_root", str(tmp_path)]),
+            "setgan": lambda: SetGAN(sg3_r_config(32, channel_base=512, channel_max=16,
+                                                  num_layers=4), encoder_num_layers=8),
+            "lpips_squeeze": lambda: LPIPS("squeeze")}[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()

@@ -908,3 +908,59 @@ def test_restyle_coach_step_through_the_kernels_matches_plain(cuda_device, slim_
     scale = max(float(g.abs().max()) for g in g_ref.values())
     for k, g in g_ref.items():
         torch.testing.assert_close(g_auto[k], g, rtol=0, atol=1e-3 * scale, msg=k)
+
+
+SLIM_T = dict(channel_base=1024, channel_max=32, num_layers=4)  # a slim SG3-T stem
+
+
+@pytest.mark.gpu
+def test_setgan_through_the_kernels_matches_plain(cuda_device):
+    """A slim SetGAN (SG3-T 64² stem, the 8-layer IR-SE trunk) on padded
+    reference sets: one launch per filtered layer a call, fp32 images
+    through the kernels within 1e-3 of ``impl="ref"`` (the fp32 route is
+    the plain version's arithmetic), and a padded slot's contents change
+    no candidate."""
+    from stylegan3_editing_tpu_torch.setgan import SetGAN
+
+    cfg = sg3_t_config(64, **SLIM_T)
+    n_layers = sum(s.up_filter is not None for s in build_synthesis_layout(cfg).layers)
+    g = SetGAN(cfg, attn_layers=1, encoder_num_layers=8, mean_center=True,
+               device=cuda_device).eval()
+    gen = torch.Generator().manual_seed(5)
+    x = (torch.rand((2, 3, 64, 64, 3), generator=gen) * 2 - 1).to(cuda_device)
+    z = torch.randn((2, 2, 512), generator=gen).to(cuda_device)
+    mask = torch.tensor([[True, True, False], [True, True, True]], device=cuda_device)
+    la = g.decoder.mapping.w_avg
+    with torch.no_grad():
+        flrelu_cuda.reset_launches()
+        got = g(x, z, latent_avg=la, ref_mask=mask, force_fp32=True)
+        assert flrelu_cuda.launches["filtered_lrelu_fwd"] == n_layers
+        ref = g(x, z, latent_avg=la, ref_mask=mask, force_fp32=True, impl="ref")
+        other = x.clone()
+        other[0, 2] = x[1, 0]
+        padded = g(other, z, latent_avg=la, ref_mask=mask, force_fp32=True)
+    assert got.shape == (2, 2, 64, 64, 3) and torch.isfinite(got).all()
+    assert float((got - ref).abs().max()) <= 1e-3
+    assert float((padded - got).abs().max()) <= 1e-5 * float(got.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("net", ["vgg", "squeeze", "msssim"])
+def test_evaluation_criteria_card_matches_cpu(cuda_device, net):
+    """LPIPS on the VGG16 and SqueezeNet trunks and MS-SSIM, per image, on
+    the card against the CPU within 1e-4 of max |ref| (fp32 sum order)."""
+    from stylegan3_editing_tpu_torch.criteria import LPIPS, msssim
+
+    gen = torch.Generator().manual_seed(6)
+    x = torch.rand((3, 96, 96, 3), generator=gen) * 2 - 1
+    y = (x + 0.3 * torch.randn(x.shape, generator=gen)).clamp(-1, 1)
+    if net == "msssim":
+        cpu = gpu = lambda a, b: msssim(a, b, size_average=False)
+    else:
+        cpu = LPIPS(net, device="cpu", generator=torch.Generator().manual_seed(7)).per_image
+        gpu = LPIPS(net, device=cuda_device,
+                    generator=torch.Generator().manual_seed(7)).per_image
+    with torch.no_grad():
+        want, got = cpu(x, y), gpu(x.to(cuda_device), y.to(cuda_device)).cpu()
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
