@@ -187,7 +187,25 @@ Phases (any failure exits non-zero before the result lines):
    against ``impl="ref"`` within `IMAGE_TOL`, padded reference slots filled
    with another image within `PAD_TOL` (which unmasking them must exceed),
    the sampler's batch again from its seed; then the pretrained recipe's
-   ReStyle-encoder mode (1 iteration, mean-centred): 14 launches, finite.
+   ReStyle-encoder mode (1 iteration, mean-centred): 14 launches, finite;
+16. SetGAN training at `scripts/train_setgan_stem.sh`'s recipe at 256^2 (SG3-T,
+   IR-SE-50, D = DeiT-base-distilled at 224^2 + EfficientNet-lite0 at 256^2
+   with seeded weights and batch norms, batch 16, references 4-7, candidates
+   1-4, d_latent 128, both remats, blur sigma 2, no mean-centring): (a) one
+   warm-up `train_step`, 14 forward and 7 backward launches a step (gates),
+   3 timed steps (s per D step, G step and step with CUDA events, trained
+   candidate images/s, peak memory, under 80 GB), one traced step (idle
+   share; Dmain, Gmain, the backwards, Adam, EMA, the encoder,
+   StyleAttention, the decoder, each D trunk and each D's heads); the frozen
+   projector byte for byte across the steps; (b) one D and one G step at
+   batch 2 in fp32 through the kernels against ``impl="ref"`` (losses within
+   `MAPPER_LOSS_TOL`, every gradient within `GRAD_TOL` of its group's max),
+   kernel #2 on SG3-T 256's 7 layers at batch 64 in each layer's dtype
+   against its plain version (dx, and db within `DB_TOL`), timed beside the
+   plain version and its bound; (d) `generate` from G_ema finite; (c) the
+   pretrained recipe (ReStyle-encoder mode, 1 iteration, encoder and
+   decoder frozen): one step, 28 forward and 7 backward launches, the
+   encoder and decoder byte for byte, the style attention moving.
 
 PyTorch's TF32 flags stay at their defaults: matmuls run in fp32 by
 default, and the port holds its cuDNN convs to fp32 itself (`device.conv2d`;
@@ -2399,6 +2417,276 @@ def evaluation_setgan_phase(dev, card, layers, layer_call, kernel_call) -> float
     return max_err
 
 
+SETGAN_D_LATENT = 128      # train_setgan_stem.sh's --d_latent
+SETGAN_TIMED_STEPS = 3     # timed train_steps after one warm-up
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().view(torch.int32) if t.element_size() == 4 else t.detach()
+
+
+def setgan_training_phase(dev, card, bwd_kernel_call, bwd_plain_call) -> float:
+    """Phase 16: SetGAN training at `train_setgan_stem.sh`'s recipe, 256²:
+    (a) `SetGANTrainer.train_step` (SG3-T, IR-SE-50, DeiT-base + EfficientNet-
+    lite0 as D, both remats, blur σ 2), one warm-up and timed steps (s per D
+    step, G step and train_step, images/s, peak memory), the launches of #1
+    and #2 a step, a traced step; (b) one D and one G step at batch 2 in fp32
+    through the kernels against ``impl="ref"`` (losses, every gradient), the
+    frozen projector byte for byte across the steps, #2 alone on SG3-T 256's
+    layers at batch 64 in each layer's dtype (dx and db) timed beside its
+    plain version and its bound; (c) the pretrained recipe's freezing (ReStyle-
+    encoder mode, encoder and decoder frozen) for one step; (d) `generate`
+    from G_ema. Returns #2's largest error against its plain version."""
+    from stylegan3_editing_tpu_torch.models.sg3 import build_synthesis_layout, sg3_t_config
+    from stylegan3_editing_tpu_torch.ops import flrelu_cuda
+    from stylegan3_editing_tpu_torch.setgan import (ImageMultiSetGenerator, SetGANLossConfig,
+                                                    SetGANTrainConfig, SetGANTrainer)
+
+    cfg_t = sg3_t_config(256, channel_base=16384, channel_max=256, num_layers=7)
+    t_layers = [s for s in build_synthesis_layout(cfg_t).layers if s.up_filter is not None]
+    n_layers = len(t_layers)
+
+    def recipe(**kw):
+        base = dict(batch_size=SETGAN_BATCH, d_latent_size=SETGAN_D_LATENT, g_attn_layers=2,
+                    d_attn_layers=2, restyle_mode="none", restyle_iters=1, mean_center=False,
+                    d_remat_features=True, g_remat_encoder=True,
+                    ref_resolution=cfg_t.img_resolution,
+                    loss=SetGANLossConfig(blur_init_sigma=2.0, blur_fade_kimg=300.0))
+        return SetGANTrainConfig(**{**base, **kw})
+
+    def seeded(tr, seed):
+        """Non-trivial batch norms (IR-SE-50, EfficientNet-lite0), w_avg from
+        256 mapped z, G_ema a copy of G."""
+        seeded_batch_norms(tr.G.encoder, seed)
+        seeded_batch_norms(tr.D, seed + 1)
+        with torch.no_grad():
+            z = torch.randn((256, cfg_t.z_dim), generator=torch.Generator().manual_seed(seed + 2))
+            tr.G.decoder.mapping.w_avg.copy_(tr.G.decoder.map(z.to(dev))[:, 0].mean(0))
+            tr.latent_avg = tr.G.decoder.mapping.w_avg.clone()
+            tr.G_ema.load_state_dict(tr.G.state_dict())
+
+    def launches_of(fn):
+        flrelu_cuda.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(flrelu_cuda.launches)
+
+    t0 = time.perf_counter()
+    tr = SetGANTrainer(recipe(), cfg_t, device=dev)
+    seeded(tr, 190)
+    with torch.no_grad():
+        pool = tr.G.decoder(torch.randn((18, cfg_t.z_dim), generator=torch.Generator().manual_seed(
+            193)).to(dev), truncation_psi=0.7).float().cpu().numpy()
+    sampler = ImageMultiSetGenerator(RenderedClasses(pool, 3), SETGAN_BATCH,
+                                     reference_range=SETGAN_REFS, candidate_range=SETGAN_CANDS,
+                                     data_augmentation=True, seed=0)
+    batches = [sampler.sample_batch() for _ in range(SETGAN_TIMED_STEPS + 3)]
+    n_g = sum(p.numel() for p in tr.g_params.values())
+    n_d = sum(p.numel() for p in tr.d_params.values())
+    frozen = {n: p.detach().clone() for n, p in tr.D.named_parameters() if n.startswith("proj_")}
+    print(f"setgan training: SG3-T 256 (7 layers), IR-SE-50, D {'+'.join(tr.D.backbones)} at "
+          f"224^2 and 256^2, batch {SETGAN_BATCH}, references {SETGAN_REFS}, candidates "
+          f"{SETGAN_CANDS}, d_latent {SETGAN_D_LATENT}, remat encoder and D trunks, blur sigma "
+          f"2.0; {n_g} G and {n_d} D parameters train, {sum(t.numel() for t in frozen.values())} "
+          f"projector parameters frozen; built in {time.perf_counter() - t0:.2f} s")
+
+    # (a) A warm-up step, the launches of one step, then timed steps.
+    tr.train_step(batches[0])
+    torch.cuda.synchronize()
+    _, launches = launches_of(lambda: tr.train_step(batches[1]))
+    print(f"setgan train_step launches: {launches} ({n_layers} filtered layers: the D step's G "
+          f"forward and the G step's, and the G step's backward)")
+    if launches != {"filtered_lrelu_fwd": 2 * n_layers, "filtered_lrelu_bwd": n_layers,
+                    **NO_FIR}:
+        raise SystemExit("expected 14 forward and 7 backward launches a SetGAN train_step")
+    events = {}
+
+    def mark(name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        events.setdefault(name, []).append(e)
+
+    d_grads_fn, g_grads_fn, adam_fn = tr.d_loss_and_grads, tr.g_loss_and_grads, tr._adam_step
+
+    def d_timed(*a, **k):
+        mark("d0")
+        return d_grads_fn(*a, **k)
+
+    def g_timed(*a, **k):
+        mark("g0")
+        return g_grads_fn(*a, **k)
+
+    def adam_timed(opt, params, grads, lr):
+        adam_fn(opt, params, grads, lr)
+        mark("d1" if opt is tr.d_opt else "g1")
+
+    tr.d_loss_and_grads, tr.g_loss_and_grads, tr._adam_step = d_timed, g_timed, adam_timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_valid = 0
+    for b in batches[2:2 + SETGAN_TIMED_STEPS]:
+        mark("s0")
+        metrics = tr.train_step(b)
+        mark("s1")
+        n_valid += int(b["cand_mask"].sum())
+    torch.cuda.synchronize()
+    del tr.d_loss_and_grads, tr.g_loss_and_grads, tr._adam_step
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    def secs(a, b):
+        return sum(x.elapsed_time(y) for x, y in zip(events[a], events[b])) / 1e3 / \
+            SETGAN_TIMED_STEPS
+
+    step_s, d_s, g_s = secs("s0", "s1"), secs("d0", "d1"), secs("g0", "g1")
+    values = {k: float(v) for k, v in metrics.items()}
+    print(f"setgan train_step time: {step_s:.4f} s a step (D step {d_s:.4f} s, G step "
+          f"{g_s:.4f} s, G_ema and the rest {step_s - d_s - g_s:.4f} s) over "
+          f"{SETGAN_TIMED_STEPS} steps, {n_valid / (step_s * SETGAN_TIMED_STEPS):.4f} trained "
+          f"candidate images/s ({n_valid} valid of {SETGAN_TIMED_STEPS * SETGAN_BATCH * SETGAN_CANDS[1]} "
+          f"slots), peak memory {peak:.3f} GiB {card}")
+    print(f"setgan last timed step's metrics: {json.dumps(values)}")
+    if not all(math.isfinite(v) for v in values.values()) or peak >= 80:
+        raise SystemExit("SetGAN training: a non-finite metric, or over 80 GB")
+    t = device_trace(lambda: tr.train_step(batches[-1]), ranges=[
+        ("Dmain", None, None), ("Gmain", None, None), ("backward", None, None),
+        ("adam", None, None), ("ema", None, None),
+        ("encoder", tr.G.encoder, "forward"), ("style_attn", tr.G.style_attn, "forward"),
+        ("decoder", tr.G.decoder, "synthesize"),
+        *[(f"{bb} trunk", getattr(tr.D, f"proj_{bb}").backbone, "forward")
+          for bb in tr.D.backbones],
+        *[(f"{bb} heads", getattr(tr.D, f"d_{bb}"), "forward") for bb in tr.D.backbones]])
+    print_trace("setgan train_step", t, card)
+    moved = [n for n, p in frozen.items()
+             if not torch.equal(_bits(p), _bits(dict(tr.D.named_parameters())[n]))]
+    print(f"setgan frozen projector after {SETGAN_TIMED_STEPS + 3} steps: {len(frozen)} tensors, "
+          f"{len(moved)} changed")
+    if moved:
+        raise SystemExit(f"the frozen projector moved: {moved[:3]}")
+
+    # (b) Kernels against impl="ref": one D and one G step at batch 2 in fp32.
+    b2 = {k: v[:2] for k, v in batches[0].items()}
+    placed = tr._place(b2)
+    z2 = torch.randn((2, SETGAN_CANDS[1], cfg_t.z_dim),
+                     generator=torch.Generator().manual_seed(194)).to(dev)
+    draws = tr.draw(2, SETGAN_CANDS[1])
+    runs = {}
+    for impl in ("auto", "ref"):
+        d = tr.d_loss_and_grads(placed, z2, draws, 2.0, force_fp32=True, impl=impl)
+        g = tr.g_loss_and_grads(placed, z2, draws, 2.0, force_fp32=True, impl=impl)
+        runs[impl] = {"D": (float(d[0]), d[2]), "G": (float(g[0]), g[2])}
+        del d, g
+    atol_rel, floor = MAPPER_LOSS_TOL
+    ok = True
+    for group in ("D", "G"):
+        (la, ga), (lr_, gr) = runs["auto"][group], runs["ref"][group]
+        scale = max(float(v.abs().max()) for v in gr.values())
+        worst = max((float((ga[k] - v).abs().max()), k) for k, v in gr.items())
+        loss_ok = abs(la - lr_) <= atol_rel * abs(lr_) + floor
+        ok = ok and loss_ok and worst[0] <= GRAD_TOL * scale
+        print(f"setgan {group} step, batch 2 fp32, kernels vs impl='ref': loss {la:.8f} vs "
+              f"{lr_:.8f}; {len(gr)} gradients, worst max abs err {worst[0]:.3e} on {worst[1]} "
+              f"(tol {GRAD_TOL:g} of the group's max |grad| {scale:.4g})")
+    del runs, placed
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("SetGAN's steps through the kernels disagree with impl='ref'")
+
+    # #2 alone on SG3-T 256's layers at batch 64 (B·C), in each layer's dtype.
+    batch = SETGAN_BATCH * SETGAN_CANDS[1]
+    bwd_err, tot = 0.0, dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    with torch.no_grad():
+        for i, s in enumerate(t_layers):
+            dtype = torch.bfloat16 if s.use_bf16 else torch.float32
+            gen = torch.Generator(device=dev).manual_seed(1600 + i)
+            x = (torch.randn((batch, s.in_size[1], s.in_size[0], s.out_channels), generator=gen,
+                             device=dev) * 60).to(dtype)
+            b = torch.randn((s.out_channels,), generator=gen, device=dev).to(dtype)
+            out_h, out_w = (flrelu_cuda.output_size(side, s.up_factor, p0, p1, len(s.up_filter),
+                                                    s.down_filter.shape[0])
+                            for side, p0, p1 in ((s.in_size[1], s.padding[2], s.padding[3]),
+                                                 (s.in_size[0], s.padding[0], s.padding[1])))
+            dy = torch.randn((batch, out_h, out_w, s.out_channels), generator=gen,
+                             device=dev).to(dtype)
+            dx = bwd_kernel_call(s, dy, x, b)
+            atol, rtol = BF16_TOL if s.use_bf16 else FP32_TOL
+            db_ref = torch.zeros(s.out_channels, device=dev)
+            for n in range(0, batch, PLAIN_CHUNK):
+                ref = bwd_plain_call(s, dy[n:n + PLAIN_CHUNK].float(), x[n:n + PLAIN_CHUNK].float(),
+                                     b.float())
+                err = (dx[n:n + PLAIN_CHUNK].float() - ref).abs()
+                if not bool((err <= atol + rtol * ref.abs()).all()):
+                    raise SystemExit(f"backward kernel disagrees with the plain version on "
+                                     f"{s.name}, SG3-T 256 batch {batch}, images {n}..")
+                bwd_err = max(bwd_err, float(err.max()))
+                db_ref += ref.sum((0, 1, 2))
+                del ref, err
+            db_err = float((dx.float().sum((0, 1, 2)) - db_ref).abs().max())
+            db_tol = DB_TOL[s.use_bf16] * float(db_ref.abs().max())
+            if db_err > db_tol:
+                raise SystemExit(f"db of the backward kernel disagrees on {s.name}: "
+                                 f"{db_err:.3e} > {db_tol:.3e}")
+            k_ms = time_ms(lambda: bwd_kernel_call(s, dy, x, b), 5)
+
+            def plain_batch():
+                for n in range(0, batch, PLAIN_CHUNK):
+                    bwd_plain_call(s, dy[n:n + PLAIN_CHUNK], x[n:n + PLAIN_CHUNK], b)
+
+            p_ms = time_ms(plain_batch, 2, warmup=1)
+            nbytes, dy_up_flops, other_flops = flrelu_bwd_work(
+                tuple(x.shape), tuple(dy.shape), s.up_factor, len(s.up_filter),
+                s.down_filter.shape[0], s.down_filter.ndim == 2, x.element_size())
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = (dy_up_flops + other_flops) / FP32_FLOPS * 1e3
+            bound = max(bytes_ms, ops_ms)
+            for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", bound)):
+                tot[key] += v
+            print(f"time bwd {s.name} {str(dtype)[6:]} SG3-T 256 batch {batch}, up {s.up_factor}, "
+                  f"{len(s.up_filter)}-tap up, {s.down_filter.shape[0]}-tap separable down, "
+                  f"{s.out_channels} channels (dy up pass on the CUDA cores): kernel {k_ms:.4f} "
+                  f"ms, plain {p_ms:.4f} ms, bound {bound:.4f} ms "
+                  f"({'operations' if ops_ms > bytes_ms else 'bytes'}: {nbytes / 1e6:.1f} MB, "
+                  f"{(dy_up_flops + other_flops) / 1e9:.2f} GFLOP); db max abs err {db_err:.3e} "
+                  f"(tol {db_tol:.3e}) {card}")
+            del x, b, dy, dx
+            torch.cuda.empty_cache()
+    print(f"kernel #2, SG3-T 256 batch {batch}: {n_layers} layers against the plain version ok "
+          f"(max abs err {bwd_err:.3e}); {tot['ms']:.4f} ms a G step's backward, alone, plain "
+          f"{tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms {card}")
+
+    # (d) Inference after training: G_ema's candidates.
+    fakes = tr.generate(batches[0]["reference"][:2], SETGAN_CANDS[1])
+    print(f"setgan generate from G_ema: {fakes.shape}, finite {bool(np.isfinite(fakes).all())}")
+    res = cfg_t.img_resolution
+    if fakes.shape != (2, SETGAN_CANDS[1], res, res, 3) or not np.isfinite(fakes).all():
+        raise SystemExit("SetGAN generate: wrong or non-finite candidates")
+    del tr, fakes
+    torch.cuda.empty_cache()
+
+    # (c) The pretrained recipe: ReStyle-encoder mode, encoder and decoder frozen.
+    tr = SetGANTrainer(recipe(restyle_mode="encoder", restyle_iters=1, mean_center=None,
+                              freeze_encoder=True, freeze_decoder=True, d_remat_features=False,
+                              g_remat_encoder=False), cfg_t, device=dev)
+    seeded(tr, 195)
+    before = {n: p.detach().clone() for n, p in tr.G.named_parameters()}
+    _, launches = launches_of(lambda: tr.train_step(batches[0]))
+    same = {n: torch.equal(_bits(p), _bits(before[n])) for n, p in tr.G.named_parameters()}
+    bad = [n for n, s in same.items() if s != (n.split(".")[0] in ("encoder", "decoder"))
+           and not n.startswith(("style_attn.attn_0.", "style_attn.style_concat_0."))]
+    attn_moved = sum(not s for n, s in same.items() if n.startswith("style_attn"))
+    print(f"setgan pretrained recipe (restyle_mode encoder, 1 iteration, encoder and decoder "
+          f"frozen), one step: launches {launches}; encoder and decoder byte for byte "
+          f"{all(same[n] for n in same if n.split('.')[0] in ('encoder', 'decoder'))}, "
+          f"{attn_moved} style-attention tensors moved; no decoder gradient (dx only) "
+          f"{all(p.grad is None and not p.requires_grad for p in tr.G.decoder.parameters())}")
+    if bad or not attn_moved or launches != {"filtered_lrelu_fwd": 4 * n_layers,
+                                             "filtered_lrelu_bwd": n_layers, **NO_FIR}:
+        raise SystemExit(f"the pretrained recipe's freezing failed: {bad[:3]}, launches "
+                         f"{launches}")
+    del tr, before
+    torch.cuda.empty_cache()
+    return bwd_err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card",
@@ -2928,6 +3216,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     now = time.perf_counter()
     print(f"elapsed: phase 15 {now - t15:.1f} s, the script {now - t_start:.1f} s")
+
+    # 16. SetGAN training at train_setgan_stem.sh's recipe.
+    t16 = time.perf_counter()
+    bwd_max_err = max(bwd_max_err, setgan_training_phase(dev, card, bwd_kernel_call,
+                                                         bwd_plain_call))
+    torch.cuda.empty_cache()
+    now = time.perf_counter()
+    print(f"elapsed: phase 16 {now - t16:.1f} s, the script {now - t_start:.1f} s")
 
     def fir_entry(name, replaces):
         row = fir_rows[name, FIR_SHAPES[1], torch.bfloat16]

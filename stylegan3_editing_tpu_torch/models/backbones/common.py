@@ -12,7 +12,7 @@ tensor, which is channels-last in memory, so no copy is made either way.
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -26,24 +26,42 @@ class Conv2d(nn.Module):
     """2-D convolution of NHWC tensors with an HWIO ``kernel`` and, unless
     ``use_bias=False`` (flax ``nn.Conv(use_bias=False)``), a ``bias``.
 
+    ``padding`` is a number of pixels on each side, or ``"SAME"`` as flax
+    and TensorFlow pad: ``ceil(in / stride)`` outputs, the total padding
+    ``k − stride`` (for an input the stride divides) split with the smaller
+    half before, so a stride-2 conv on an even input pads one pixel fewer
+    on the top and left than on the bottom and right. ``groups`` is flax's
+    ``feature_group_count`` (``groups = channels``: depthwise; the kernel
+    is then ``[k, k, 1, C]``).
+
     Initialised from ``generator``: the kernel normal with std
     ``1/sqrt(fan_in)`` (flax's lecun normal, untruncated), the bias zero.
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, padding: int = 0,
-                 generator: Optional[torch.Generator] = None, use_bias: bool = True):
+                 stride: int = 1, padding: Union[int, str] = 0,
+                 generator: Optional[torch.Generator] = None, use_bias: bool = True,
+                 groups: int = 1):
         super().__init__()
-        self.stride, self.padding = stride, padding
-        fan_in = in_channels * kernel_size ** 2
+        if isinstance(padding, str) and padding != "SAME":
+            raise ValueError(f"padding must be a number or 'SAME', got {padding!r}")
+        self.stride, self.padding, self.groups = stride, padding, groups
+        fan_in = in_channels // groups * kernel_size ** 2
         self.kernel = nn.Parameter(torch.randn(
-            (kernel_size, kernel_size, in_channels, out_channels), generator=generator)
-            / math.sqrt(fan_in))
+            (kernel_size, kernel_size, in_channels // groups, out_channels),
+            generator=generator) / math.sqrt(fan_in))
         self.bias = nn.Parameter(torch.zeros(out_channels)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = conv2d(x.permute(0, 3, 1, 2), self.kernel.permute(3, 2, 0, 1), self.bias,
-                   stride=self.stride, padding=self.padding)
+        x, padding = x.permute(0, 3, 1, 2), self.padding
+        if padding == "SAME":
+            pads = []
+            for size, k in ((x.shape[3], self.kernel.shape[1]), (x.shape[2], self.kernel.shape[0])):
+                total = max((-(-size // self.stride) - 1) * self.stride + k - size, 0)
+                pads += [total // 2, total - total // 2]
+            x, padding = F.pad(x, pads), 0
+        y = conv2d(x, self.kernel.permute(3, 2, 0, 1), self.bias, stride=self.stride,
+                   padding=padding, groups=self.groups)
         return y.permute(0, 2, 3, 1)
 
 
@@ -94,13 +112,15 @@ class BatchNorm(nn.Module):
     buffers. ``train=True`` normalises by the batch's statistics (biased
     variance) and moves the buffers by torch's momentum convention
     (new = (1 − momentum)·old + momentum·batch, unbiased variance).
+    ``epsilon`` is torch's 1e-5 unless another is given (TensorFlow's
+    EfficientNets use 1e-3).
     """
 
     momentum = 0.1
-    epsilon = 1e-5
 
-    def __init__(self, channels: int, affine: bool = True):
+    def __init__(self, channels: int, affine: bool = True, epsilon: float = 1e-5):
         super().__init__()
+        self.epsilon = epsilon
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
         self.scale = nn.Parameter(torch.ones(channels)) if affine else None

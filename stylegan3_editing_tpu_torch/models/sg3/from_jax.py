@@ -8,15 +8,22 @@ and keeps the same layouts (HWIO conv weights, ``[out, in]`` dense
 weights), so each leaf copies into the tensor of the same dotted name, and
 `to_jax_variables` nests them back under their collections. That holds
 for every module of the port named after its flax paths: a `Generator`, a
-`RestyleNet`, and a `SetGAN` (``encoder`` with its batch statistics,
+`RestyleNet`, a `SetGAN` (``encoder`` with its batch statistics,
 ``style_attn.attn_{i}`` / ``style_concat_{i}``, ``decoder`` with its
-buffers and EMAs). This module
+buffers and EMAs) and a `ProjectedSetDiscriminator` (``proj_<backbone>``:
+the backbone, its batch statistics, ``ccm*``/``csm*``; ``d_<backbone>``:
+``disc*`` and ``set*``).
+
+The SetGAN trainer's snapshots also hold optax's Adam states: `adam_moments`
+reads the moments and the step count out of one, and `optax_adam_state`
+writes them back in the layout optax gives `SetGANTrainer`'s optimizers,
+so a snapshot goes either way between the two packages. This module
 needs numpy only; the port still imports nothing of JAX.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Iterable, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -82,3 +89,61 @@ def to_jax_variables(module: nn.Module) -> Dict[str, dict]:
             node = node.setdefault(key, {})
         node[leaf] = value.detach().float().cpu().numpy().copy()
     return tree
+
+
+def _find_adam(tree):
+    """The one ``{count, mu, nu}`` node (optax ``ScaleByAdamState``) of a state tree."""
+    if isinstance(tree, Mapping):
+        if {"count", "mu", "nu"} <= set(tree):
+            return tree
+        found = [f for f in (_find_adam(v) for v in tree.values()) if f is not None]
+    elif isinstance(tree, (list, tuple)):
+        found = [f for f in (_find_adam(v) for v in tree) if f is not None]
+    else:
+        return None
+    if len(found) > 1:
+        raise ValueError("more than one Adam state in the optimizer tree")
+    return found[0] if found else None
+
+
+def adam_moments(opt_state) -> Tuple[int, Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+    """(step count, first moments, second moments) of the Adam state in an
+    optax state tree as a snapshot stores it (namedtuples as dicts, tuples
+    as lists); the moments by dotted parameter name, frozen leaves (optax's
+    empty ``MaskedNode``) left out."""
+    adam = _find_adam(opt_state)
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in the optimizer tree")
+    mu: Dict[str, np.ndarray] = {}
+    nu: Dict[str, np.ndarray] = {}
+    _flatten(adam["mu"], "", mu)
+    _flatten(adam["nu"], "", nu)
+    return int(np.asarray(adam["count"])), mu, nu
+
+
+def _nest(flat: Mapping[str, np.ndarray], names: Iterable[str]) -> dict:
+    tree: dict = {}
+    for name in names:
+        node = tree
+        keys = name.split(".")
+        for key in keys[:-1]:
+            node = node.setdefault(key, {})
+        node[keys[-1]] = np.asarray(flat[name]) if name in flat else {}
+    return tree
+
+
+def optax_adam_state(count: int, mu: Mapping[str, np.ndarray], nu: Mapping[str, np.ndarray],
+                     param_names: Iterable[str], schedule: bool,
+                     masked: bool) -> object:
+    """An optax Adam state tree as `SetGANTrainer` keeps it: ``optax.adam``
+    is ``[scale_by_adam, scale_by_schedule or scale]``; ``masked`` wraps it
+    in ``multi_transform({"train": adam, "freeze": set_to_zero()})``, where
+    the moments of a parameter that does not train are empty (optax's
+    ``MaskedNode``). ``param_names`` are all the module's parameters."""
+    names = list(param_names)
+    c = np.asarray(count, np.int32)
+    adam = [{"count": c, "mu": _nest(mu, names), "nu": _nest(nu, names)},
+            {"count": c.copy()} if schedule else {}]
+    if not masked:
+        return adam
+    return {"inner_states": {"freeze": {"inner_state": {}}, "train": {"inner_state": adam}}}

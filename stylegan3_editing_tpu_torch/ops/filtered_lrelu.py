@@ -19,6 +19,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..device import kernel_or_plain
 from . import flrelu_cuda
@@ -106,7 +107,10 @@ class FusedFilteredLrelu(torch.autograd.Function):
 
     Saves only x and b: the backward recomputes the pre-activation from
     them. db = Σ dx over N, H, W in fp32, outside the kernel, as in the JAX
-    package (`ops/filtered_lrelu.py:138`).
+    package (`ops/filtered_lrelu.py:138`). The kernel writes dx into a
+    fresh tensor that carries no graph, so the backward is not
+    differentiable again: a double backward (a path-length penalty's
+    second-order terms) raises instead of dropping those terms.
     """
 
     @staticmethod
@@ -117,6 +121,7 @@ class FusedFilteredLrelu(torch.autograd.Function):
                                                gain=gain, slope=slope, clamp=clamp)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, dy):
         x, b = ctx.saved_tensors
         fu, fd, up, padding, gain, slope, clamp = ctx.conf

@@ -1,0 +1,193 @@
+"""Train SetGAN (CLI).
+
+The port of the JAX package's `scripts/train_setgan.py` (reference
+train_setgan.py): the options → `SetGANTrainer.train` over a class-per-folder
+image root (or a named ``--dataset``), ticks, snapshots and a ``final``
+snapshot. It runs on the CUDA card unless ``--device cpu`` is given, in one
+process.
+
+    python -m stylegan3_editing_tpu_torch.scripts.train_setgan --data DIR \\
+        --outdir OUT --fid false [--device cpu]
+
+Not ported yet, and refused before any work with the slice that brings
+them: ``--fid true`` (the default; conditional FID needs
+`setgan/metrics.py` and InceptionV3, ROADMAP slice 17), ``--superres``,
+``--path_stem`` and ``--encoder_path`` (`models/sg3/superres.reinit_stem`,
+slice 18), ``--devices`` above 1 (the multi-card runtime, Queue 1 #10).
+``--generator_path`` takes an ``.npz`` written by `convert_checkpoint`;
+convert a reference ``.pt`` or ``.pkl`` to one first.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from pathlib import Path
+from typing import Optional, Sequence
+
+from ..device import resolve_device
+from ..models.sg3 import sg3_t_config
+from ..models.sg3.convert import npz_to_variables
+from ..runtime.profiling import maybe_start_trace, stop_trace
+from ..setgan.dataset import ImageMultiSetGenerator, SafeClassImageDataset, build_datasets
+from ..setgan.loss import SetGANLossConfig
+from ..setgan.training_loop import SetGANTrainConfig, SetGANTrainer
+from ..utils.cli import parse_dataclass
+
+
+@dataclasses.dataclass
+class SetGANCliOptions:
+    outdir: str = "./experiments/setgan"
+    data: str = "./data"
+    # A named dataset layout (celeba, celeba-ident, imagenet, vggface,
+    # animalfaces, flowers, cifar100, mini-imagenet); empty: --data holds a
+    # folder per class.
+    dataset: Optional[str] = None
+    data_augmentation: bool = False  # set-consistent flips and rotations
+    resolution: int = 256
+    total_kimg: float = 10000
+    encoder_res: int = 256
+    devices: Optional[int] = None
+    batch: int = 8
+    reference_min: int = 7
+    reference_max: int = 12
+    candidate_min: int = 1
+    candidate_max: int = 4
+    stem: str = "sg3"
+    # Comma-separated feature networks for D; empty: DeiT-base-distilled +
+    # EfficientNet-lite0.
+    backbones: Optional[str] = None
+    glr: float = 0.0025
+    dlr: float = 0.002
+    ema_kimg: float = 10.0
+    tick_kimg: float = 4.0
+    snapshot_ticks: int = 50
+    eval_ticks: int = 50
+    # D sees blurred images early, fading out over 300 kimg (σ in steps of 0.1).
+    blur_init_sigma: float = 2.0
+    blur_fade_kimg: float = 300.0
+    pl_weight: float = 0.0
+    seed: int = 0
+    resume: Optional[str] = None
+    ada_target: Optional[float] = None
+    generator_path: Optional[str] = None  # a converted generator (.npz)
+    superres: bool = False
+    head_layers: int = 7
+    up_factor: int = 2
+    path_stem: Optional[str] = None
+    freeze_encoder: bool = False
+    freeze_decoder: bool = False
+    encoder_path: Optional[str] = None
+    restyle_mode: str = "none"  # none | encoder
+    restyle_iters: int = 3
+    g_attn_heads: int = 4
+    g_attn_layers: int = 2
+    d_attn_heads: int = 4
+    d_attn_layers: int = 2
+    d_latent: int = 512
+    d_remat_features: bool = False
+    g_remat_encoder: bool = False
+    use_set_decoder: bool = True
+    use_temperature: bool = False
+    disable_style_concat: bool = False
+    no_mean_center: bool = False
+    encoder_type: str = "ProgressiveBackboneEncoder"
+    encoder_num_layers: int = 50
+    inception_path: Optional[str] = None
+    fid: bool = True
+    fid_classes: int = 8
+    fid_mode: str = "agg"  # agg | sfid | rfid
+    cbase: int = 16384
+    cmax: int = 256
+    syn_layers: int = 7
+    fid_items_per_class: int = 256
+    device: Optional[str] = None  # cuda unless "cpu"
+
+
+def check_options(opts: SetGANCliOptions) -> None:
+    """Refuse what the port cannot do yet, before any work."""
+    if opts.fid:
+        raise NotImplementedError(
+            "--fid true needs setgan/metrics.py (ConditionalFID) and InceptionV3, which are "
+            "not ported yet (ROADMAP slice 17); pass --fid false")
+    if opts.devices is not None and opts.devices > 1:
+        raise NotImplementedError("--devices > 1 needs the multi-card runtime "
+                                  "(ROADMAP Queue 1 #10, slice 19)")
+    for flag, value in (("--superres", opts.superres), ("--path_stem", opts.path_stem),
+                        ("--encoder_path", opts.encoder_path)):
+        if value:
+            raise NotImplementedError(
+                f"{flag} needs models/sg3/superres.reinit_stem, which is not ported yet "
+                "(ROADMAP slice 18)")
+    if opts.generator_path and not opts.generator_path.endswith(".npz"):
+        raise NotImplementedError(
+            f"--generator_path {opts.generator_path}: give an .npz written by "
+            "stylegan3_editing_tpu_torch.scripts.convert_checkpoint (the SetGAN CLI's own "
+            ".pt and .pkl loading comes with ROADMAP slice 18)")
+    if opts.pl_weight > 0:
+        raise NotImplementedError(
+            "--pl_weight > 0 needs path-length regularisation: a double-differentiable "
+            "device.conv2d backward and a backward for #2 (ROADMAP Queue 1)")
+
+
+def build_trainer(opts: SetGANCliOptions) -> SetGANTrainer:
+    decoder_cfg = sg3_t_config(opts.resolution, channel_base=opts.cbase,
+                               channel_max=opts.cmax, num_layers=opts.syn_layers)
+    gen_vars = npz_to_variables(opts.generator_path) if opts.generator_path else None
+    cfg = SetGANTrainConfig(
+        total_kimg=opts.total_kimg, batch_size=opts.batch, g_lr=opts.glr, d_lr=opts.dlr,
+        ema_kimg=opts.ema_kimg,
+        # A resumed run has no EMA ramp-up and adapts ADA faster.
+        ema_rampup=None if opts.resume else 0.05, ada_target=opts.ada_target,
+        ada_kimg=100.0 if opts.resume else 500.0, tick_kimg=opts.tick_kimg,
+        snapshot_ticks=opts.snapshot_ticks, ref_resolution=opts.encoder_res,
+        eval_ticks=opts.eval_ticks, seed=opts.seed, stem=opts.stem,
+        **({"d_backbones": tuple(opts.backbones.split(","))} if opts.backbones else {}),
+        freeze_encoder=opts.freeze_encoder, freeze_decoder=opts.freeze_decoder,
+        restyle_mode=opts.restyle_mode, restyle_iters=opts.restyle_iters,
+        g_attn_heads=opts.g_attn_heads, g_attn_layers=opts.g_attn_layers,
+        d_attn_heads=opts.d_attn_heads, d_attn_layers=opts.d_attn_layers,
+        d_latent_size=opts.d_latent, d_remat_features=opts.d_remat_features,
+        g_remat_encoder=opts.g_remat_encoder, use_set_decoder=opts.use_set_decoder,
+        use_temperature=opts.use_temperature, disable_style_concat=opts.disable_style_concat,
+        mean_center=False if opts.no_mean_center else None, encoder_type=opts.encoder_type,
+        encoder_num_layers=opts.encoder_num_layers,
+        loss=SetGANLossConfig(blur_init_sigma=opts.blur_init_sigma,
+                              blur_fade_kimg=opts.blur_fade_kimg, pl_weight=opts.pl_weight))
+    return SetGANTrainer(cfg, decoder_cfg, run_dir=opts.outdir, generator_variables=gen_vars,
+                         device=opts.device)
+
+
+def main(opts: SetGANCliOptions) -> SetGANTrainer:
+    check_options(opts)
+    resolve_device(opts.device)  # no card and no --device cpu: raise before reading data
+    run_dir = Path(opts.outdir)
+    run_dir.mkdir(parents=True, exist_ok=True)
+    if opts.dataset:
+        _, dataset = build_datasets(opts.dataset, opts.data, opts.resolution)
+    else:
+        dataset = SafeClassImageDataset.from_folder(opts.data, opts.resolution)
+    data = ImageMultiSetGenerator(
+        dataset, batch_size=opts.batch, reference_range=(opts.reference_min, opts.reference_max),
+        candidate_range=(opts.candidate_min, opts.candidate_max),
+        data_augmentation=opts.data_augmentation, seed=opts.seed)
+    trainer = build_trainer(opts)
+    if opts.resume:
+        trainer.restore(opts.resume)
+    maybe_start_trace()  # a torch.profiler capture when SG3TPU_TRACE_DIR is set
+    try:
+        trainer.train(iter(data))
+    finally:
+        trace_dir = stop_trace()
+        if trace_dir:
+            print(f"profiler trace written to {trace_dir}")
+    trainer.snapshot(run_dir / "final")
+    print(f"done at {trainer.cur_nimg / 1000:.1f} kimg, best_fid={trainer.best_fid}")
+    return trainer
+
+
+def cli(argv: Optional[Sequence[str]] = None) -> SetGANTrainer:
+    return main(parse_dataclass(SetGANCliOptions, argv))
+
+
+if __name__ == "__main__":
+    cli()

@@ -2,6 +2,7 @@
 
 import ast
 import json
+import math
 import subprocess
 import sys
 from pathlib import Path
@@ -11,7 +12,7 @@ import pytest
 import torch
 
 from stylegan3_editing_tpu_torch.models.backbones.common import Conv2d
-from stylegan3_editing_tpu_torch.models.sg3 import Generator, sg3_r_config
+from stylegan3_editing_tpu_torch.models.sg3 import Generator, sg3_r_config, sg3_t_config
 from stylegan3_editing_tpu_torch.models.sg3.config import build_synthesis_layout
 from stylegan3_editing_tpu_torch.ops import cuda_build, fir_cuda, flrelu_cuda
 from stylegan3_editing_tpu_torch.device import kernel_or_plain
@@ -302,9 +303,33 @@ def _conv_calls():
         a, b = leaf(1, 48, 48, 3), leaf(1, 48, 48, 3)
         return msssim(torch.tanh(a), torch.tanh(b), normalize="simple"), [a, b]
 
+    def deit():
+        from stylegan3_editing_tpu_torch.models.backbones.deit import DeiTTinyFeatures
+
+        x = leaf(1, 224, 224, 3)
+        net = DeiTTinyFeatures(generator=torch.Generator().manual_seed(0))
+        return sum(f.square().mean() for f in net(x)), [x]
+
+    def efficientnet():
+        from stylegan3_editing_tpu_torch.models.backbones.efficientnet import (
+            EfficientNetB0Features)
+
+        x = leaf(1, 33, 34, 3)  # odd and even sides: the "SAME" pads differ
+        net = EfficientNetB0Features(generator=torch.Generator().manual_seed(0))
+        return sum(f.square().mean() for f in net(x)), [x]
+
+    def set_discriminator():
+        from stylegan3_editing_tpu_torch.setgan import ProjectedSetDiscriminator
+
+        d = ProjectedSetDiscriminator(64, latent_size=16, num_discs=4, interp224=False,
+                                      backbones=("tiny_proj",), attn_layers=1, device="cpu")
+        r, x = leaf(1, 2, 64, 64, 3), leaf(1, 2, 64, 64, 3)
+        return d(torch.tanh(r), torch.tanh(x)).sum(), [r, x]
+
     return {"modulated_conv2d_3x3": modulated, "alexnet_Conv2d": alexnet, "upfirdn2d": fir,
             "styleclip_mapper_step": mapper_step, "restyle_coach_step": restyle_coach_step,
-            "squeezenet": squeezenet, "msssim": ms_ssim}
+            "squeezenet": squeezenet, "msssim": ms_ssim, "deit": deit,
+            "efficientnet_b0": efficientnet, "set_discriminator": set_discriminator}
 
 
 @pytest.mark.parametrize("op", sorted(_conv_calls()))
@@ -702,3 +727,79 @@ def test_evaluation_and_setgan_entry_points_raise_without_a_card(monkeypatch, en
             "lpips_squeeze": lambda: LPIPS("squeeze")}[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
+
+
+def test_setgan_training_modules_import_without_optional_packages():
+    """The feature-network registry and its DeiT and EfficientNet families,
+    DiffAugment, ADA, the loss, the discriminator, the trainer, the runtime
+    utilities and the training CLI import with JAX, Pillow, scipy and
+    scikit-learn unavailable and leave JAX unloaded."""
+    blocked = ("PIL", "imageio", "scipy", "sklearn", "cv2", "orbax", "jax", "flax")
+    code = ("import sys, json\n"
+            f"for name in {blocked!r}:\n"
+            "    sys.modules[name] = None\n"
+            "import stylegan3_editing_tpu_torch.models.backbones.registry, "
+            "stylegan3_editing_tpu_torch.models.backbones.deit, "
+            "stylegan3_editing_tpu_torch.models.backbones.efficientnet, "
+            "stylegan3_editing_tpu_torch.setgan.diffaugment, "
+            "stylegan3_editing_tpu_torch.setgan.ada, "
+            "stylegan3_editing_tpu_torch.setgan.loss, "
+            "stylegan3_editing_tpu_torch.setgan.discriminator, "
+            "stylegan3_editing_tpu_torch.setgan.training_loop, "
+            "stylegan3_editing_tpu_torch.runtime.util, "
+            "stylegan3_editing_tpu_torch.scripts.train_setgan\n"
+            "print(json.dumps(sorted(m for m in sys.modules if sys.modules[m] is not None "
+            f"and m.split('.')[0] in {blocked + ('stylegan3_editing_tpu',)!r})))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("entry", ["train_setgan", "trainer", "discriminator"])
+def test_setgan_training_entry_points_raise_without_a_card(monkeypatch, entry, tmp_path):
+    """`train_setgan` (before it reads its data), `SetGANTrainer` and the
+    discriminator raise without a card unless they are given ``device="cpu"``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from stylegan3_editing_tpu_torch.scripts import train_setgan
+    from stylegan3_editing_tpu_torch.setgan import (ProjectedSetDiscriminator,
+                                                    SetGANTrainConfig, SetGANTrainer)
+
+    call = {"train_setgan": lambda: train_setgan.cli(
+                ["--data", str(tmp_path / "none"), "--outdir", str(tmp_path / "out"),
+                 "--fid", "false"]),
+            "trainer": lambda: SetGANTrainer(
+                SetGANTrainConfig(d_backbones=("tiny_proj",), encoder_num_layers=8),
+                sg3_r_config(32, channel_base=512, channel_max=16, num_layers=4)),
+            "discriminator": lambda: ProjectedSetDiscriminator(32, backbones=("tiny_proj",))}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call[entry]()
+    assert not (tmp_path / "out").exists()
+
+
+def test_fused_filtered_lrelu_backward_is_once_differentiable(monkeypatch):
+    """The backward kernel's dx carries no graph, so a double backward through
+    `FusedFilteredLrelu` must raise rather than drop the second-order terms.
+    On the CPU the kernels are stood in for by their plain versions."""
+    import importlib
+
+    fl = importlib.import_module("stylegan3_editing_tpu_torch.ops.filtered_lrelu")
+    s = next(s for s in build_synthesis_layout(sg3_t_config(64, channel_base=1024,
+                                                            channel_max=32)).layers
+             if s.up_filter is not None)
+    monkeypatch.setattr(fl.flrelu_cuda, "filtered_lrelu_cuda",
+                        lambda x, fu, fd, b, up, padding, gain, slope, clamp:
+                        fl.filtered_lrelu_ref(x, fu, fd, b, up, 2, padding, gain, slope, clamp))
+    monkeypatch.setattr(fl.flrelu_cuda, "filtered_lrelu_bwd_cuda",
+                        lambda dy, x, fu, fd, b, up, padding, gain, slope, clamp:
+                        fl.filtered_lrelu_bwd_ref(dy, x, fu, fd, b, up, padding, gain, slope,
+                                                  clamp))
+    rng = np.random.RandomState(2)
+    x = torch.from_numpy(rng.randn(1, s.in_size[1], s.in_size[0], 4).astype(np.float32))
+    b = torch.from_numpy(rng.randn(4).astype(np.float32))
+    x.requires_grad_(True)
+    y = fl.FusedFilteredLrelu.apply(x, b, s.up_filter, s.down_filter, s.up_factor, s.padding,
+                                    math.sqrt(2), 0.2, s.conv_clamp)
+    (gx,) = torch.autograd.grad(y.square().sum(), x, create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        gx.sum().backward()

@@ -964,3 +964,109 @@ def test_evaluation_criteria_card_matches_cpu(cuda_device, net):
         want, got = cpu(x, y), gpu(x.to(cuda_device), y.to(cuda_device)).cpu()
     assert torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+SLIM_T_LAYERS = [s.name for s in build_synthesis_layout(sg3_t_config(64, **SLIM_T)).layers
+                 if s.up_filter is not None]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", SLIM_T_LAYERS)
+def test_flrelu_bwd_kernel_on_slim_sg3t_layers(cuda_device, name):
+    """The backward kernel on a slim SG3-T's layers (separable filters: the
+    dy up pass on the CUDA cores), in each layer's dtype, as SetGAN's G step
+    runs it: dx against `filtered_lrelu_bwd_ref` on the upcast inputs (fp32:
+    atol = rtol = 1e-4; bf16: one bf16 rounding, rtol 2^-8, atol 1e-3), and
+    db = Σ dx within 1e-4 (fp32) or 2^-6 (bf16) of max |db|. x is scaled so
+    that the clamp of 256 bites."""
+    s = next(s for s in build_synthesis_layout(sg3_t_config(64, **SLIM_T)).layers
+             if s.name == name)
+    dt = torch.bfloat16 if s.use_bf16 else torch.float32
+    rng = np.random.RandomState(17)
+    x = torch.from_numpy(rng.randn(2, s.in_size[1], s.in_size[0], s.out_channels)
+                         .astype(np.float32) * 60).to(cuda_device, dt)
+    b = torch.from_numpy(rng.randn(s.out_channels).astype(np.float32)).to(cuda_device, dt)
+    out_h, out_w = (flrelu_cuda.output_size(side, s.up_factor, p0, p1, len(s.up_filter),
+                                            s.down_filter.shape[0])
+                    for side, p0, p1 in ((s.in_size[1], s.padding[2], s.padding[3]),
+                                         (s.in_size[0], s.padding[0], s.padding[1])))
+    dy = torch.from_numpy(rng.randn(2, out_h, out_w, s.out_channels)
+                          .astype(np.float32)).to(cuda_device, dt)
+    before = flrelu_cuda.launches["filtered_lrelu_bwd"]
+    got = flrelu_cuda.filtered_lrelu_bwd_cuda(dy, x, s.up_filter, s.down_filter, b,
+                                              s.up_factor, s.padding, 2 ** 0.5, 0.2, s.conv_clamp)
+    assert flrelu_cuda.launches["filtered_lrelu_bwd"] == before + 1
+    ref = filtered_lrelu_bwd_ref(dy.float(), x.float(), s.up_filter, s.down_filter, b.float(),
+                                 s.up_factor, s.padding, clamp=s.conv_clamp)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == x.shape
+    atol, rtol = (1e-3, 2 ** -8) if s.use_bf16 else (1e-4, 1e-4)
+    torch.testing.assert_close(got.float(), ref, atol=atol, rtol=rtol)
+    db, db_ref = got.float().sum((0, 1, 2)), ref.sum((0, 1, 2))
+    tol = (2 ** -6 if s.use_bf16 else 1e-4) * float(db_ref.abs().max())
+    assert float((db - db_ref).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+def test_setgan_train_step_through_the_kernels_matches_plain(cuda_device):
+    """A slim SetGAN trainer (SG3-T 64² stem, the 8-layer IR-SE trunk,
+    ``tiny_proj``): one D step's and one G step's losses and gradients in
+    fp32 through the kernels against ``impl="ref"`` from the same state,
+    noise and draws (losses within 1e-4 relative + 2^-20; each gradient
+    within 1e-3 of its group's largest |entry|). The G step launches the
+    forward kernel once and the backward kernel once per filtered layer;
+    the D step's G runs without a graph (forward only)."""
+    from stylegan3_editing_tpu_torch.setgan import SetGANTrainConfig, SetGANTrainer
+
+    cfg = sg3_t_config(64, **SLIM_T)
+    n_layers = len(SLIM_T_LAYERS)
+    tr = SetGANTrainer(SetGANTrainConfig(batch_size=2, d_backbones=("tiny_proj",),
+                                         encoder_num_layers=8, g_attn_layers=1,
+                                         d_attn_layers=1, d_latent_size=32), cfg,
+                       device=cuda_device)
+    gen = torch.Generator().manual_seed(9)
+    batch = {"reference": (torch.rand((2, 3, 64, 64, 3), generator=gen) * 2 - 1),
+             "ref_mask": torch.tensor([[True, True, False], [True, True, True]]),
+             "candidate": (torch.rand((2, 2, 64, 64, 3), generator=gen) * 2 - 1),
+             "cand_mask": torch.tensor([[True, False], [True, True]])}
+    placed = tr._place(batch)
+    z = torch.randn((2, 2, cfg.z_dim), generator=gen).to(cuda_device)
+    draws = tr.draw(2, 2)
+    runs = {}
+    for impl in ("auto", "ref"):
+        flrelu_cuda.reset_launches()
+        d_loss, _, d_grads = tr.d_loss_and_grads(placed, z, draws, 2.0, force_fp32=True,
+                                                 impl=impl)
+        assert flrelu_cuda.launches["filtered_lrelu_bwd"] == 0
+        flrelu_cuda.reset_launches()
+        g_loss, _, g_grads = tr.g_loss_and_grads(placed, z, draws, 2.0, force_fp32=True,
+                                                 impl=impl)
+        torch.cuda.synchronize()
+        want = {"auto": n_layers, "ref": 0}[impl]
+        assert flrelu_cuda.launches == {"filtered_lrelu_fwd": want, "filtered_lrelu_bwd": want,
+                                        "fir_taps": 0, "fir_banded": 0}
+        runs[impl] = (float(d_loss), float(g_loss), d_grads, g_grads)
+    for i in (0, 1):
+        assert abs(runs["auto"][i] - runs["ref"][i]) <= 1e-4 * abs(runs["ref"][i]) + 2.0 ** -20
+    for i in (2, 3):
+        scale = max(float(g.abs().max()) for g in runs["ref"][i].values())
+        for k, g in runs["ref"][i].items():
+            torch.testing.assert_close(runs["auto"][i][k], g, rtol=0, atol=1e-3 * scale, msg=k)
+
+
+@pytest.mark.gpu
+def test_double_backward_through_the_fused_filtered_lrelu_raises(cuda_device):
+    """The backward kernel's dx carries no graph: a second derivative through
+    `FusedFilteredLrelu` (a path-length penalty's) raises instead of
+    dropping its terms."""
+    s = next(s for s in build_synthesis_layout(sg3_t_config(64, **SLIM_T)).layers
+             if s.up_filter is not None)
+    rng = np.random.RandomState(19)
+    x = torch.from_numpy(rng.randn(1, s.in_size[1], s.in_size[0], s.out_channels)
+                         .astype(np.float32)).to(cuda_device).requires_grad_(True)
+    b = torch.from_numpy(rng.randn(s.out_channels).astype(np.float32)).to(cuda_device)
+    y = filtered_lrelu(x, fu=s.up_filter, fd=s.down_filter, b=b, up=s.up_factor,
+                       down=s.down_factor, padding=s.padding, clamp=s.conv_clamp)
+    (gx,) = torch.autograd.grad(y.square().sum(), x, create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        gx.sum().backward()
