@@ -205,7 +205,27 @@ Phases (any failure exits non-zero before the result lines):
    plain version and its bound; (d) `generate` from G_ema finite; (c) the
    pretrained recipe (ReStyle-encoder mode, 1 iteration, encoder and
    decoder frozen): one step, 28 forward and 7 backward launches, the
-   encoder and decoder byte for byte, the style attention moving.
+   encoder and decoder byte for byte, the style attention moving;
+17. SetGAN's conditional FID and the registry's last families: (a)
+   `train_setgan.build_trainer` at `train_setgan_stem.sh`'s recipe (phase
+   16's) trained by `SetGANTrainer.train` for 2 ticks of one step with
+   `make_fid_eval_fn` at the CLI's defaults (8 classes of 16 in-memory
+   renders, InceptionV3 at 299^2 with its seeded init) at the second tick:
+   s per evaluation, InceptionV3 ms per image at batch 16, `generate` ms
+   per class, the FID in its three modes from the evaluation's features,
+   peak memory, #1's launches per evaluation; (b) gates: 7 launches a
+   `generate` call and 14 + 7 a training step, the evaluation's FID kept as
+   the best, InceptionV3 card vs CPU on 32 images (`EVAL_TOL`), the FID of
+   their features card vs CPU (`FID_CARD_TOL`), a real set against itself
+   (at most `FID_SELF_TOL` of its 2 tr(cov), at least `FID_SELF_FLOOR`:
+   ``sqrtm`` rounds a rank-15 product below 0), `spectrum_stats` of 16 fakes card vs
+   CPU (`SPECTRUM_TOL`); (c) DenseNet-121, MobileNetV2, MNASNet-1.0,
+   ShuffleNetV2-x0.5, RegNetX-032, RegNetY-032, CLIP ViT-B/32 (224^2) and
+   CLIP RN50 at 256^2, batch 8, seeded with non-trivial batch norms: the
+   four stages card vs CPU (`EVAL_TOL`), ms per image; (d) one fp32 D and
+   G step at batch 2 with D = CLIP ViT-B/32 + RegNetY-032 through the
+   kernels against ``impl="ref"`` (`MAPPER_LOSS_TOL`, `GRAD_TOL`; 14 + 7
+   launches).
 
 PyTorch's TF32 flags stay at their defaults: matmuls run in fp32 by
 default, and the port holds its cuDNN convs to fp32 itself (`device.conv2d`;
@@ -2687,6 +2707,244 @@ def setgan_training_phase(dev, card, bwd_kernel_call, bwd_plain_call) -> float:
     return bwd_err
 
 
+FID_CLASSES, FID_ITEMS = 8, 16   # train_setgan's defaults: 8 classes, min(256, 16) items a class
+FID_SELF_TOL = 1e-6        # a real set against itself reads at most this of its 2·tr(cov)
+FID_SELF_FLOOR = -1e-5     # ... and not below this: sqrtm's rounding on a rank-15 product
+FID_CARD_TOL = 1e-3        # the FID from the card's features vs the CPU's, relative (PERF.md)
+SPECTRUM_TOL = 1e-5        # spectrum_stats card vs CPU, of max |ref|: fp32 FFTs (cuFFT, pocketfft)
+NEW_FAMILIES = ("densenet121", "mobilenet_v2", "mnasnet1_0", "shufflenet_v2_x0_5", "regnetx_032",
+                "regnety_032", "clip_vit_b32", "resnet50_clip")
+D_NEW_FAMILIES = ("clip_vit_b32", "regnety_032")  # (d)'s discriminator: a ViT and an SE RegNet
+
+
+def setgan_fid_phase(dev, card) -> None:
+    """Phase 17: SetGAN's conditional FID in training and the registry's
+    last families. (a) `train_setgan`'s trainer at `train_setgan_stem.sh`'s
+    recipe (`build_trainer`) trained by `SetGANTrainer.train` for 2 ticks of
+    one step with `make_fid_eval_fn` at the CLI's defaults (8 classes, 16
+    items a class, InceptionV3 at 299^2 with its seeded init) every tick:
+    s per evaluation, InceptionV3 ms per image at batch 16, `generate` ms
+    per class, the FID in its three modes from the evaluation's features,
+    peak memory, #1's launches per evaluation; (b) gates: InceptionV3 card vs
+    CPU, the FID from the card's features vs the CPU's, a real set against
+    itself, 14 + 7 launches a training step, `spectrum_stats` of the fakes
+    card vs CPU; (c) each new family's four stages card vs CPU at the
+    discriminator's input, batch 8, ms per image; (d) one fp32 D and G step
+    at batch 2 with D on two new families through the kernels against
+    ``impl="ref"``."""
+    import copy
+    import dataclasses
+    import tempfile
+
+    from stylegan3_editing_tpu_torch.models.backbones.inception import inception_feature_fn
+    from stylegan3_editing_tpu_torch.models.backbones.registry import make_feature_network
+    from stylegan3_editing_tpu_torch.models.sg3 import build_synthesis_layout
+    from stylegan3_editing_tpu_torch.ops import flrelu_cuda
+    from stylegan3_editing_tpu_torch.scripts import train_setgan
+    from stylegan3_editing_tpu_torch.setgan import (ConditionalFID, FeatureStats,
+                                                    ImageMultiSetGenerator, frechet_distance)
+    from stylegan3_editing_tpu_torch.utils.spectrum import spectrum_stats
+
+    t0 = time.perf_counter()
+    opts = train_setgan.SetGANCliOptions(
+        outdir=tempfile.mkdtemp(), resolution=256, batch=SETGAN_BATCH, cbase=16384, cmax=256,
+        syn_layers=7, reference_min=SETGAN_REFS[0], reference_max=SETGAN_REFS[1],
+        candidate_min=SETGAN_CANDS[0], candidate_max=SETGAN_CANDS[1], d_latent=SETGAN_D_LATENT,
+        g_attn_layers=2, d_attn_layers=2, restyle_mode="none", restyle_iters=1,
+        no_mean_center=True, data_augmentation=True, d_remat_features=True,
+        g_remat_encoder=True, encoder_res=256, tick_kimg=SETGAN_BATCH / 1000,
+        total_kimg=2 * SETGAN_BATCH / 1000, eval_ticks=1, fid=True)
+
+    def built(o, seed):
+        """The CLI's trainer, no run directory (no Pillow here for the
+        grids); non-trivial batch norms, w_avg from 256 mapped z, G_ema = G."""
+        tr = train_setgan.build_trainer(o)
+        tr.run_dir = None
+        seeded_batch_norms(tr.G.encoder, seed)
+        seeded_batch_norms(tr.D, seed + 1)
+        with torch.no_grad():
+            z = torch.randn((256, tr.decoder_cfg.z_dim),
+                            generator=torch.Generator().manual_seed(seed + 2))
+            tr.G.decoder.mapping.w_avg.copy_(tr.G.decoder.map(z.to(dev))[:, 0].mean(0))
+            tr.latent_avg = tr.G.decoder.mapping.w_avg.clone()
+            tr.G_ema.load_state_dict(tr.G.state_dict())
+        return tr
+
+    tr = built(opts, 1700)
+    n_layers = sum(s.up_filter is not None for s in build_synthesis_layout(tr.decoder_cfg).layers)
+    with torch.no_grad():
+        pool = np.concatenate([tr.G.decoder(torch.randn(
+            (FID_ITEMS, tr.decoder_cfg.z_dim), generator=torch.Generator().manual_seed(1703 + c)
+        ).to(dev), truncation_psi=0.7).float().cpu().numpy() for c in range(FID_CLASSES)])
+    classes = RenderedClasses(pool, FID_CLASSES)
+    sampler = ImageMultiSetGenerator(classes, SETGAN_BATCH, reference_range=SETGAN_REFS,
+                                     candidate_range=SETGAN_CANDS, data_augmentation=True, seed=0)
+    made = []
+
+    class Recording(ConditionalFID):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    evals = []
+    train_setgan.ConditionalFID = Recording
+    try:
+        eval_fn = train_setgan.make_fid_eval_fn(opts, classes)
+
+        def timed_eval(trainer):
+            torch.cuda.synchronize()
+            before, t = dict(flrelu_cuda.launches), time.perf_counter()
+            value = eval_fn(trainer)
+            torch.cuda.synchronize()
+            evals.append((time.perf_counter() - t, {k: v - before[k] for k, v in
+                                                    flrelu_cuda.launches.items()}, value))
+            return value
+
+        print(f"setgan fid: trainer and {len(pool)} renders in {FID_CLASSES} classes built in "
+              f"{time.perf_counter() - t0:.2f} s")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flrelu_cuda.reset_launches()
+        t = time.perf_counter()
+        tr.train(iter(sampler), eval_fn=timed_eval)
+        torch.cuda.synchronize()
+        run_s, launches = time.perf_counter() - t, dict(flrelu_cuda.launches)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        train_setgan.ConditionalFID = ConditionalFID
+    (eval_s, eval_launches, agg), = evals
+    steps = tr.d_steps
+    step_launches = {k: (v - eval_launches[k]) / steps for k, v in launches.items()}
+    print(f"setgan fid: train() at train_setgan_stem.sh's recipe, {steps} steps in 2 ticks with "
+          f"the FID at the second: {run_s:.4f} s, peak memory {peak:.3f} GiB; launches "
+          f"{launches} (the evaluation {eval_launches}, {step_launches} a step) {card}")
+    print(f"setgan fid evaluation: {eval_s:.4f} s ({FID_CLASSES} classes x {FID_ITEMS} items: "
+          f"{FID_CLASSES} generate calls, {2 * FID_CLASSES} InceptionV3 batches, one sqrtm), "
+          f"#1 {eval_launches['filtered_lrelu_fwd']} launches "
+          f"({eval_launches['filtered_lrelu_fwd'] / FID_CLASSES:g} a generate call) {card}")
+    if (eval_launches != {"filtered_lrelu_fwd": n_layers * FID_CLASSES, "filtered_lrelu_bwd": 0,
+                          **NO_FIR} or step_launches != {"filtered_lrelu_fwd": 2 * n_layers,
+                                                         "filtered_lrelu_bwd": n_layers, **NO_FIR}
+            or steps != 2 or tr.best_fid != agg):
+        raise SystemExit("SetGAN FID: expected 7 launches a generate call, 14 + 7 a training "
+                         "step, 2 steps and the evaluation's FID kept as the best")
+    fid = made[0]
+    feature_fn = fid.feature_fn
+    t = time.perf_counter()
+    sfid = fid.compute("sfid")
+    sfid_s, t = time.perf_counter() - t, time.perf_counter()
+    rfid = fid.compute("rfid")
+    rfid_s = time.perf_counter() - t
+    print(f"setgan fid, one set of features ({FID_CLASSES} classes x {FID_ITEMS} real and fake, "
+          f"2048-d): agg {agg!r}, sfid {sfid!r} ({sfid_s:.2f} s, {FID_CLASSES} sqrtm), rfid "
+          f"{rfid!r} ({rfid_s:.2f} s) {card}")
+    if not all(math.isfinite(v) and v >= 0 for v in (agg, sfid, rfid)):
+        raise SystemExit("SetGAN FID: a mode is not finite")
+
+    real = classes.images[:FID_ITEMS]
+    refs = real[None, :FID_ITEMS // 2]
+    gen_ms = time_ms(lambda: tr.generate(refs, num_candidates=FID_ITEMS), 3, warmup=1)
+    inc_ms = time_ms(lambda: feature_fn(real), 5)
+    print(f"setgan fid timing: generate {gen_ms:.4f} ms a class ({FID_ITEMS // 2} references, "
+          f"{FID_ITEMS} candidates), InceptionV3 {inc_ms / FID_ITEMS:.4f} ms an image at batch "
+          f"{FID_ITEMS} (299^2, fp32) {card}")
+
+    # (b) Gates: features, FID and spectrum card vs CPU; a set against itself.
+    fakes = tr.generate(refs, num_candidates=FID_ITEMS)[0]
+    cpu_fn = inception_feature_fn(device="cpu")
+    card_real, card_fake = feature_fn(real), feature_fn(fakes)
+    cpu_real, cpu_fake = cpu_fn(real), cpu_fn(fakes)
+    err = max(float(np.abs(a - b).max()) for a, b in ((card_real, cpu_real),
+                                                       (card_fake, cpu_fake)))
+    scale = max(float(np.abs(cpu_real).max()), float(np.abs(cpu_fake).max()))
+
+    def fid_of(a, b):
+        s1, s2 = FeatureStats(), FeatureStats()
+        s1.append(a)
+        s2.append(b)
+        return frechet_distance(*s1.get_mean_cov(), *s2.get_mean_cov())
+
+    fid_card, fid_cpu = fid_of(card_real, card_fake), fid_of(cpu_real, cpu_fake)
+    st = FeatureStats()
+    st.append(card_real)
+    mu, cov = st.get_mean_cov()
+    self_fid, two_tr = frechet_distance(mu, cov, mu, cov), 2 * float(np.trace(cov))
+    spec_card = spectrum_stats(torch.from_numpy(fakes).to(dev))
+    spec_cpu = spectrum_stats(torch.from_numpy(fakes))
+    spec_err = {k: float((spec_card[k].cpu() - spec_cpu[k]).abs().max()) /
+                float(spec_cpu[k].abs().max()) for k in spec_cpu}
+    print(f"setgan fid gates: InceptionV3 card vs CPU on {FID_ITEMS} + {FID_ITEMS} images max abs "
+          f"err {err:.3e} (tol {EVAL_TOL:g} of max |ref| {scale:.4g}); FID card {fid_card!r} vs "
+          f"CPU {fid_cpu!r} (relative {abs(fid_card - fid_cpu) / max(fid_cpu, 1e-30):.3e}, tol "
+          f"{FID_CARD_TOL:g}); a real set against itself {self_fid!r}, {self_fid / two_tr:.3e} of "
+          f"2 tr(cov) {two_tr:.6g} (at most {FID_SELF_TOL:g}, at least {FID_SELF_FLOOR:g}); "
+          f"spectrum_stats of {FID_ITEMS} fakes card vs CPU, of max "
+          f"|ref|: {json.dumps(spec_err)} (tol {SPECTRUM_TOL:g}) {card}")
+    if (err > EVAL_TOL * scale or abs(fid_card - fid_cpu) > FID_CARD_TOL * fid_cpu
+            or not FID_SELF_FLOOR * two_tr <= self_fid <= FID_SELF_TOL * two_tr
+            or max(spec_err.values()) > SPECTRUM_TOL):
+        raise SystemExit("SetGAN FID: a card-vs-CPU gate failed")
+    del tr, fid, made, cpu_fn
+    torch.cuda.empty_cache()
+
+    # (c) Each new family's four stages, card vs CPU, batch 8.
+    for i, name in enumerate(NEW_FAMILIES):
+        net, spec = make_feature_network(name, generator=torch.Generator().manual_seed(1710 + i))
+        seeded_batch_norms(net, 1720 + i)
+        net.eval()
+        side = spec.fixed_input_res or 256
+        x = torch.tanh(torch.randn((8, side, side, 3), generator=torch.Generator().manual_seed(
+            1730 + i)))
+        x = (x * 0.5 + 0.5 - torch.from_numpy(spec.mean)) / torch.from_numpy(spec.std)
+        on_card = copy.deepcopy(net).to(dev)
+        with torch.no_grad():
+            got = [f.cpu() for f in on_card(x.to(dev))]
+            want = net(x)
+            ms = time_ms(lambda: on_card(x.to(dev)), 3)
+        errs = [float((g - w).abs().max()) / float(w.abs().max()) for g, w in zip(got, want)]
+        print(f"family {name} at {side}^2, batch 8: stages {[tuple(w.shape[1:]) for w in want]}, "
+              f"card vs CPU of max |ref| {['%.2e' % e for e in errs]} (tol {EVAL_TOL:g}); "
+              f"{ms / 8:.4f} ms an image {card}")
+        if len(got) != 4 or max(errs) > EVAL_TOL or \
+                [w.shape[-1] for w in want] != list(spec.channels):
+            raise SystemExit(f"the {name} stages disagree between the card and the CPU")
+        del net, on_card
+    torch.cuda.empty_cache()
+
+    # (d) One fp32 D and G step at batch 2, D on two new families, kernels vs impl="ref".
+    tr = built(dataclasses.replace(opts, backbones=",".join(D_NEW_FAMILIES)), 1740)
+    b2 = {k: v[:2] for k, v in sampler.sample_batch().items()}
+    placed = tr._place(b2)
+    z2 = torch.randn((2, SETGAN_CANDS[1], tr.decoder_cfg.z_dim),
+                     generator=torch.Generator().manual_seed(1744)).to(dev)
+    draws = tr.draw(2, SETGAN_CANDS[1])
+    runs, launches = {}, {}
+    for impl in ("auto", "ref"):
+        flrelu_cuda.reset_launches()
+        d = tr.d_loss_and_grads(placed, z2, draws, 2.0, force_fp32=True, impl=impl)
+        g = tr.g_loss_and_grads(placed, z2, draws, 2.0, force_fp32=True, impl=impl)
+        torch.cuda.synchronize()
+        launches[impl] = dict(flrelu_cuda.launches)
+        runs[impl] = {"D": (float(d[0]), d[2]), "G": (float(g[0]), g[2])}
+        del d, g
+    atol_rel, floor = MAPPER_LOSS_TOL
+    ok = launches["auto"] == {"filtered_lrelu_fwd": 2 * n_layers,
+                              "filtered_lrelu_bwd": n_layers, **NO_FIR}
+    for group in ("D", "G"):
+        (la, ga), (lr_, gr) = runs["auto"][group], runs["ref"][group]
+        scale = max(float(v.abs().max()) for v in gr.values())
+        worst = max((float((ga[k] - v).abs().max()), k) for k, v in gr.items())
+        ok = ok and abs(la - lr_) <= atol_rel * abs(lr_) + floor and worst[0] <= GRAD_TOL * scale
+        print(f"setgan {group} step with D = {'+'.join(D_NEW_FAMILIES)}, batch 2 fp32, kernels "
+              f"vs impl='ref': loss {la:.8f} vs {lr_:.8f}; {len(gr)} gradients, worst max abs "
+              f"err {worst[0]:.3e} on {worst[1]} (tol {GRAD_TOL:g} of the group's max |grad| "
+              f"{scale:.4g}); launches {launches['auto']}")
+    del tr, runs, placed
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("SetGAN's steps with the new families disagree with impl='ref'")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card",
@@ -3224,6 +3482,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     now = time.perf_counter()
     print(f"elapsed: phase 16 {now - t16:.1f} s, the script {now - t_start:.1f} s")
+
+    # 17. SetGAN's conditional FID in training; the registry's last families.
+    t17 = time.perf_counter()
+    setgan_fid_phase(dev, card)
+    torch.cuda.empty_cache()
+    now = time.perf_counter()
+    print(f"elapsed: phase 17 {now - t17:.1f} s, the script {now - t_start:.1f} s")
 
     def fir_entry(name, replaces):
         row = fir_rows[name, FIR_SHAPES[1], torch.bfloat16]

@@ -25,7 +25,7 @@ import html
 import math
 import unicodedata
 from functools import lru_cache
-from typing import Mapping, Optional
+from typing import List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -85,9 +85,18 @@ class Transformer(nn.Module):
         for i in range(layers):
             self.add_module(f"resblock_{i}", ResidualAttentionBlock(width, heads, generator))
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                hooks: Optional[Sequence[int]] = None):
+        """The last block's output; with ``hooks`` (block indices, the
+        feature network's taps) also the hooked blocks' outputs in
+        ``hooks``' order: ``(x, [x_i for i in hooks])``."""
+        hooked = {}
         for i in range(self.layers):
             x = getattr(self, f"resblock_{i}")(x, mask)
+            if hooks is not None and i in hooks:
+                hooked[i] = x
+        if hooks is not None:
+            return x, [hooked[i] for i in hooks]
         return x
 
 
@@ -422,3 +431,57 @@ class SimpleTokenizer:
                 toks[-1] = eot
             result[i, :len(toks)] = toks
         return result
+
+
+class CLIPViTStages(nn.Module):
+    """CLIP ViT-B/32's visual trunk sliced into the 4-stage feature contract.
+
+    The JAX package's `CLIPViTStages` (the reference's ViT feature networks
+    with their hooks): the tokens after blocks 2, 5, 8 and 11, the class
+    token dropped, laid out on the 7×7 patch grid, then one head per stage:
+    a 1×1 conv to 96, 192, 384 and 768 channels and a transposed conv ×8,
+    ×4, ×2 (none at /32), so the stages sit at /4, /8, /16, /32. The heads
+    keep their random init; the trunk's names are `CLIP`'s, so
+    `convert_clip_visual_state` fills it. The input must be 224²: the
+    registry fixes that size, and the JAX package's position-embedding
+    resize for other sizes is not ported.
+    """
+
+    WIDTH, LAYERS, PATCH, GRID = 768, 12, 32, 7
+    HOOKS, STAGE_CH, UPS = (2, 5, 8, 11), (96, 192, 384, 768), (8, 4, 2, 1)
+
+    def __init__(self, generator: Optional[torch.Generator] = None):
+        from .deit import ConvTranspose
+
+        super().__init__()
+        width, scale = self.WIDTH, self.WIDTH ** -0.5
+        self.visual_conv1 = Conv2d(3, width, self.PATCH, stride=self.PATCH, generator=generator,
+                                   use_bias=False)
+        self.class_embedding = nn.Parameter(scale * torch.randn((width,), generator=generator))
+        self.visual_positional_embedding = nn.Parameter(
+            scale * torch.randn((self.GRID ** 2 + 1, width), generator=generator))
+        self.ln_pre = LayerNorm(width)
+        self.visual_transformer = Transformer(width, self.LAYERS, width // 64, generator)
+        for si, (ch, up) in enumerate(zip(self.STAGE_CH, self.UPS)):
+            self.add_module(f"head{si}_proj", Conv2d(width, ch, 1, generator=generator))
+            if up > 1:
+                self.add_module(f"head{si}_up", ConvTranspose(ch, ch, up, generator))
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        n, hh, ww, _ = x.shape
+        side, grid, width = self.GRID * self.PATCH, self.GRID, self.WIDTH
+        if (hh, ww) != (side, side):
+            raise ValueError(f"CLIPViTStages takes {side}x{side} inputs (a {grid}x{grid} token "
+                             f"grid), got {hh}x{ww}")
+        with fp32_matmul():
+            tok = self.visual_conv1(x).reshape(n, grid * grid, width)
+            cls = self.class_embedding[None, None].expand(n, 1, width)
+            tok = torch.cat([cls, tok], dim=1) + self.visual_positional_embedding[None]
+            _, taps = self.visual_transformer(self.ln_pre(tok), hooks=self.HOOKS)
+        outs = []
+        for si, tap in enumerate(taps):
+            fmap = getattr(self, f"head{si}_proj")(tap[:, 1:].reshape(n, grid, grid, width))
+            if self.UPS[si] > 1:
+                fmap = getattr(self, f"head{si}_up")(fmap)
+            outs.append(fmap)
+        return outs

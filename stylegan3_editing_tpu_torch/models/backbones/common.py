@@ -12,7 +12,7 @@ tensor, which is channels-last in memory, so no copy is made either way.
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Optional, Union
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -26,7 +26,10 @@ class Conv2d(nn.Module):
     """2-D convolution of NHWC tensors with an HWIO ``kernel`` and, unless
     ``use_bias=False`` (flax ``nn.Conv(use_bias=False)``), a ``bias``.
 
-    ``padding`` is a number of pixels on each side, or ``"SAME"`` as flax
+    ``kernel_size`` is ``k`` (square) or ``(kh, kw)``. ``padding`` is a
+    number of pixels on each side, a pair ``(ph, pw)`` (each on both sides
+    of its axis, as torchvision's ``BasicConv2d`` pads a 1×7 kernel), or
+    ``"SAME"`` as flax
     and TensorFlow pad: ``ceil(in / stride)`` outputs, the total padding
     ``k − stride`` (for an input the stride divides) split with the smaller
     half before, so a stride-2 conv on an even input pads one pixel fewer
@@ -38,17 +41,20 @@ class Conv2d(nn.Module):
     ``1/sqrt(fan_in)`` (flax's lecun normal, untruncated), the bias zero.
     """
 
-    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, padding: Union[int, str] = 0,
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: Union[int, Tuple[int, int]], stride: int = 1,
+                 padding: Union[int, Tuple[int, int], str] = 0,
                  generator: Optional[torch.Generator] = None, use_bias: bool = True,
                  groups: int = 1):
         super().__init__()
         if isinstance(padding, str) and padding != "SAME":
-            raise ValueError(f"padding must be a number or 'SAME', got {padding!r}")
-        self.stride, self.padding, self.groups = stride, padding, groups
-        fan_in = in_channels // groups * kernel_size ** 2
+            raise ValueError(f"padding must be a number, a pair or 'SAME', got {padding!r}")
+        self.stride, self.groups = stride, groups
+        self.padding = tuple(padding) if isinstance(padding, (tuple, list)) else padding
+        kh, kw = (kernel_size, kernel_size) if isinstance(kernel_size, int) else kernel_size
+        fan_in = in_channels // groups * kh * kw
         self.kernel = nn.Parameter(torch.randn(
-            (kernel_size, kernel_size, in_channels // groups, out_channels),
+            (kh, kw, in_channels // groups, out_channels),
             generator=generator) / math.sqrt(fan_in))
         self.bias = nn.Parameter(torch.zeros(out_channels)) if use_bias else None
 

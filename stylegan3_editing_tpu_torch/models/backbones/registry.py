@@ -13,10 +13,10 @@ discriminator). Every entry gives:
   flax tree that `models.sg3.load_jax_variables` reads (stage heads the
   reference leaves at their random init keep it).
 
-The registry lists the JAX package's names. The DenseNet, MobileNet,
-MNASNet, ShuffleNet, RegNet and CLIP families are registered with their
-channels but not ported: building one raises `NotImplementedError`
-(ROADMAP slice 17).
+The registry lists the JAX package's names, and each builds: DeiT/ViT,
+the EfficientNet ladder, the ResNet, VGG and AlexNet stages, DenseNet,
+MobileNetV2, MNASNet, ShuffleNetV2, the RegNetX/Y ladder and CLIP's ViT-B/32
+and RN50 trunks.
 """
 
 from __future__ import annotations
@@ -109,49 +109,6 @@ def convert_feature_network_state(name: str, state: Mapping[str, np.ndarray]) ->
     return variables
 
 
-def _not_ported(name: str):
-    def make(**_):
-        raise NotImplementedError(
-            f"the feature network {name!r} is registered but not ported yet "
-            "(ROADMAP slice 17: the registry's remaining families)")
-
-    def convert(_):
-        make()
-
-    return make, convert
-
-
-# The JAX registry's families that wait for slice 17, with their channels.
-_SLICE_17 = {
-    "densenet121": ((128, 256, 512, 1024), IMAGENET_MEAN, IMAGENET_STD, None),
-    "densenet169": ((128, 256, 640, 1664), IMAGENET_MEAN, IMAGENET_STD, None),
-    "densenet201": ((128, 256, 896, 1920), IMAGENET_MEAN, IMAGENET_STD, None),
-    "mobilenet_v2": ((24, 32, 96, 320), IMAGENET_MEAN, IMAGENET_STD, None),
-    "mnasnet0_5": ((16, 24, 48, 160), IMAGENET_MEAN, IMAGENET_STD, None),
-    "mnasnet1_0": ((24, 40, 96, 320), IMAGENET_MEAN, IMAGENET_STD, None),
-    "shufflenet_v2_x0_5": ((24, 48, 96, 192), IMAGENET_MEAN, IMAGENET_STD, None),
-    "regnetx_002": ((24, 56, 152, 368), IMAGENET_MEAN, IMAGENET_STD, None),
-    "regnetx_004": ((32, 64, 160, 384), IMAGENET_MEAN, IMAGENET_STD, None),
-    "regnetx_006": ((48, 96, 240, 528), IMAGENET_MEAN, IMAGENET_STD, None),
-    "regnetx_008": ((64, 128, 288, 672), IMAGENET_MEAN, IMAGENET_STD, None),
-    "regnetx_016": ((72, 168, 408, 912), IMAGENET_MEAN, IMAGENET_STD, None),
-    "regnetx_032": ((96, 192, 432, 1008), IMAGENET_MEAN, IMAGENET_STD, None),
-    "regnetx_040": ((80, 240, 560, 1360), IMAGENET_MEAN, IMAGENET_STD, None),
-    "regnetx_064": ((168, 392, 784, 1624), IMAGENET_MEAN, IMAGENET_STD, None),
-    "regnety_002": ((24, 56, 152, 368), IMAGENET_MEAN, IMAGENET_STD, None),
-    "regnety_004": ((48, 104, 208, 440), IMAGENET_MEAN, IMAGENET_STD, None),
-    "regnety_006": ((48, 112, 256, 608), IMAGENET_MEAN, IMAGENET_STD, None),
-    "regnety_008": ((64, 128, 320, 768), IMAGENET_MEAN, IMAGENET_STD, None),
-    "regnety_016": ((48, 120, 336, 888), IMAGENET_MEAN, IMAGENET_STD, None),
-    "regnety_032": ((72, 216, 576, 1512), IMAGENET_MEAN, IMAGENET_STD, None),
-    "regnety_040": ((128, 192, 512, 1088), IMAGENET_MEAN, IMAGENET_STD, None),
-    "regnety_064": ((144, 288, 576, 1296), IMAGENET_MEAN, IMAGENET_STD, None),
-    "clip_vit_b32": ((96, 192, 384, 768), CLIP_MEAN, CLIP_STD, 224),
-    "resnet50_clip": ((256, 512, 1024, 2048), CLIP_MEAN, CLIP_STD, None),
-}
-SLICE_17_NAMES = tuple(sorted(_SLICE_17))
-
-
 def _sliced(inner, take=(1, 2, 3, 4)):
     return lambda **kw: SlicedStages(inner, take=take, **kw)
 
@@ -160,15 +117,22 @@ def _register_defaults() -> None:
     from functools import partial
 
     from .alexnet import AlexNetFeatures, convert_alexnet_state
+    from .clip import CLIPViTStages, convert_clip_visual_state
+    from .clip_resnet import CLIPResNet50Stages, convert_clip_resnet_state
+    from .densenet import DENSENET_BLOCKS, make_densenet
     from .deit import (DeiTFeatures, DeiTSmallFeatures, DeiTTinyFeatures, ViTBaseFeatures,
                        convert_deit)
     from .efficientnet import (EfficientNetB0Features, EfficientNetLite0Features,
                                convert_efficientnet_b0, convert_efficientnet_lite0,
                                make_efficientnet)
+    from .mobilenet import (MNASNetStages, MobileNetV2Stages, convert_mnasnet_state,
+                            convert_mobilenet_v2_state, mnasnet_channels)
+    from .regnet import REGNET_PARAMS, make_regnet
     from .resnet import (BOTTLENECK_STAGES, ResNet18Stages, ResNet34Stages, ResNet50Stages,
                          ResNetBottleneckStages, convert_bottleneck_stages_state,
                          convert_resnet18_state, convert_resnet34_state,
                          convert_resnet50_state)
+    from .shufflenet import ShuffleNetV2Stages, convert_shufflenet_state
     from .vgg import (VGG16Features, VGG19Features, convert_vgg16_state, convert_vgg19_state,
                       make_vgg)
 
@@ -221,9 +185,22 @@ def _register_defaults() -> None:
         make, convert = make_vgg(name)
         register(name, _sliced(make), IMAGENET_MEAN, IMAGENET_STD, convert,
                  (128, 256, 512, 512), nested=True)
-    for name, (channels, mean, std, fixed) in _SLICE_17.items():
-        make, convert = _not_ported(name)
-        register(name, make, mean, std, convert, channels, fixed_input_res=fixed)
+    for name in DENSENET_BLOCKS:
+        register(name, *_ladder(make_densenet(name), False))
+    register("mobilenet_v2", MobileNetV2Stages, IMAGENET_MEAN, IMAGENET_STD,
+             convert_mobilenet_v2_state, (24, 32, 96, 320))
+    for alpha, name in ((0.5, "mnasnet0_5"), (1.0, "mnasnet1_0")):
+        outs = mnasnet_channels(alpha)[1]
+        register(name, partial(MNASNetStages, alpha=alpha), IMAGENET_MEAN, IMAGENET_STD,
+                 convert_mnasnet_state, (outs[0], outs[1], outs[3], outs[5]))
+    register("shufflenet_v2_x0_5", ShuffleNetV2Stages, IMAGENET_MEAN, IMAGENET_STD,
+             convert_shufflenet_state, (24, 48, 96, 192))
+    for name in REGNET_PARAMS:
+        register(name, *_ladder(make_regnet(name), False))
+    register("clip_vit_b32", CLIPViTStages, CLIP_MEAN, CLIP_STD, convert_clip_visual_state,
+             (96, 192, 384, 768), fixed_input_res=224)
+    register("resnet50_clip", CLIPResNet50Stages, CLIP_MEAN, CLIP_STD,
+             convert_clip_resnet_state, (256, 512, 1024, 2048))
 
 
 def _ladder(made, inception: bool):

@@ -7,13 +7,19 @@ snapshot. It runs on the CUDA card unless ``--device cpu`` is given, in one
 process.
 
     python -m stylegan3_editing_tpu_torch.scripts.train_setgan --data DIR \\
-        --outdir OUT --fid false [--device cpu]
+        --outdir OUT [--fid false] [--inception_path INCEPTION] [--device cpu]
+
+``--fid true`` (the default) evaluates the class-conditional FID every
+``--eval_ticks`` ticks (`make_fid_eval_fn`; the best one snapshots
+``best_model``) with InceptionV3 features: the weights from
+``--inception_path`` (a tree saved by `runtime.checkpoint.save_pytree`, as
+`convert_inception` gives it), else a seeded init, whose FIDs cannot be
+compared with published ones.
 
 Not ported yet, and refused before any work with the slice that brings
-them: ``--fid true`` (the default; conditional FID needs
-`setgan/metrics.py` and InceptionV3, ROADMAP slice 17), ``--superres``,
-``--path_stem`` and ``--encoder_path`` (`models/sg3/superres.reinit_stem`,
-slice 18), ``--devices`` above 1 (the multi-card runtime, Queue 1 #10).
+them: ``--superres``, ``--path_stem`` and ``--encoder_path``
+(`models/sg3/superres.reinit_stem`, slice 18), ``--devices`` above 1 (the
+multi-card runtime, Queue 1 #10).
 ``--generator_path`` takes an ``.npz`` written by `convert_checkpoint`;
 convert a reference ``.pt`` or ``.pkl`` to one first.
 """
@@ -22,7 +28,9 @@ from __future__ import annotations
 
 import dataclasses
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
+
+import numpy as np
 
 from ..device import resolve_device
 from ..models.sg3 import sg3_t_config
@@ -30,6 +38,7 @@ from ..models.sg3.convert import npz_to_variables
 from ..runtime.profiling import maybe_start_trace, stop_trace
 from ..setgan.dataset import ImageMultiSetGenerator, SafeClassImageDataset, build_datasets
 from ..setgan.loss import SetGANLossConfig
+from ..setgan.metrics import ConditionalFID
 from ..setgan.training_loop import SetGANTrainConfig, SetGANTrainer
 from ..utils.cli import parse_dataclass
 
@@ -105,10 +114,6 @@ class SetGANCliOptions:
 
 def check_options(opts: SetGANCliOptions) -> None:
     """Refuse what the port cannot do yet, before any work."""
-    if opts.fid:
-        raise NotImplementedError(
-            "--fid true needs setgan/metrics.py (ConditionalFID) and InceptionV3, which are "
-            "not ported yet (ROADMAP slice 17); pass --fid false")
     if opts.devices is not None and opts.devices > 1:
         raise NotImplementedError("--devices > 1 needs the multi-card runtime "
                                   "(ROADMAP Queue 1 #10, slice 19)")
@@ -127,6 +132,36 @@ def check_options(opts: SetGANCliOptions) -> None:
         raise NotImplementedError(
             "--pl_weight > 0 needs path-length regularisation: a double-differentiable "
             "device.conv2d backward and a backward for #2 (ROADMAP Queue 1)")
+
+
+def make_fid_eval_fn(opts: SetGANCliOptions, dataset) -> Callable[[SetGANTrainer], float]:
+    """The in-loop class-conditional FID: each call draws ``fid_classes``
+    classes (``np.random.RandomState(seed + 7)``, one stream over the run),
+    takes up to 16 items of each (``fid_items_per_class`` at most), renders
+    as many candidates from G_ema with the first half of them as the
+    references, and returns the ``fid_mode`` FID of InceptionV3's pool3
+    features."""
+    from ..models.backbones.inception import inception_feature_fn
+    from ..runtime.checkpoint import load_pytree
+
+    variables = load_pytree(opts.inception_path)[0] if opts.inception_path else None
+    feature_fn = inception_feature_fn(variables, device=opts.device)
+    rng = np.random.RandomState(opts.seed + 7)
+
+    def eval_fn(trainer: SetGANTrainer) -> float:
+        fid = ConditionalFID(feature_fn, max_items_per_class=opts.fid_items_per_class)
+        n_classes = min(opts.fid_classes, len(dataset.classes))
+        per = min(opts.fid_items_per_class, 16)
+        for idx in rng.choice(len(dataset.classes), n_classes, replace=False):
+            paths = dataset.class_to_paths[dataset.classes[int(idx)]][:per]
+            real = np.stack([dataset.load(p) for p in paths])
+            refs = real[None, :max(len(real) // 2, 1)]
+            fakes = trainer.generate(refs, num_candidates=len(real), use_ema=True)
+            fid.append_real(int(idx), real)
+            fid.append_fake(int(idx), np.asarray(fakes[0]))
+        return fid.compute(opts.fid_mode)
+
+    return eval_fn
 
 
 def build_trainer(opts: SetGANCliOptions) -> SetGANTrainer:
@@ -163,9 +198,9 @@ def main(opts: SetGANCliOptions) -> SetGANTrainer:
     run_dir = Path(opts.outdir)
     run_dir.mkdir(parents=True, exist_ok=True)
     if opts.dataset:
-        _, dataset = build_datasets(opts.dataset, opts.data, opts.resolution)
+        eval_ds, dataset = build_datasets(opts.dataset, opts.data, opts.resolution)
     else:
-        dataset = SafeClassImageDataset.from_folder(opts.data, opts.resolution)
+        dataset = eval_ds = SafeClassImageDataset.from_folder(opts.data, opts.resolution)
     data = ImageMultiSetGenerator(
         dataset, batch_size=opts.batch, reference_range=(opts.reference_min, opts.reference_max),
         candidate_range=(opts.candidate_min, opts.candidate_max),
@@ -173,9 +208,10 @@ def main(opts: SetGANCliOptions) -> SetGANTrainer:
     trainer = build_trainer(opts)
     if opts.resume:
         trainer.restore(opts.resume)
+    eval_fn = make_fid_eval_fn(opts, eval_ds) if opts.fid else None
     maybe_start_trace()  # a torch.profiler capture when SG3TPU_TRACE_DIR is set
     try:
-        trainer.train(iter(data))
+        trainer.train(iter(data), eval_fn=eval_fn)
     finally:
         trace_dir = stop_trace()
         if trace_dir:

@@ -1,9 +1,8 @@
 """SetGAN of the port: the set transformer, the set-conditioned generator,
 the multi-set data sampler, the projected set discriminator, DiffAugment
-and ADA, the loss and the trainer.
+and ADA, the loss, the trainer and the conditional FID.
 
-Counterparts of the JAX package's `setgan/` modules; its metrics
-(conditional FID) are ROADMAP slice 17.
+Counterparts of the JAX package's `setgan/` modules.
 """
 
 from .ada import AdaController, AdaState, apply_ada
@@ -15,6 +14,8 @@ from .discriminator import (BACKBONES, FeatureProjector, MultiScaleD, MultiSetCo
                             backbone_fixed_res, projector_param_mask, resolve_backbone)
 from .loss import (SetGANLossConfig, blur_images, blur_sigma_at, d_main_loss, g_main_loss,
                    path_length_penalty)
+from .metrics import (ConditionalFID, ConditionalMetrics, FeatureStats, frechet_distance,
+                      stats_cache_file)
 from .model import (SetGAN, StyleAttention, StyleConcat, make_stem, to_images, to_imgset,
                     to_set)
 from .set_transformer import (MHA, PMA, MultiSetAttentionBlock, MultiSetTransformerEncoder,
@@ -28,7 +29,8 @@ __all__ = ["AdaController", "AdaState", "apply_ada", "ClassImageDataset",
            "MultiSetComparator", "ProjectedSetDiscriminator", "SingleDisc", "TinyFeatures",
            "backbone_fixed_res", "projector_param_mask", "resolve_backbone",
            "SetGANLossConfig", "blur_images", "blur_sigma_at", "d_main_loss", "g_main_loss",
-           "path_length_penalty", "SetGAN", "StyleAttention", "StyleConcat", "make_stem",
+           "path_length_penalty", "ConditionalFID", "ConditionalMetrics", "FeatureStats",
+           "frechet_distance", "stats_cache_file", "SetGAN", "StyleAttention", "StyleConcat", "make_stem",
            "to_images", "to_imgset", "to_set", "MHA", "PMA", "MultiSetAttentionBlock",
            "MultiSetTransformerEncoder", "SetAttentionBlock", "SetDecoderBlock",
            "SetEncoderBlock", "SetTransformerDecoder", "SetTransformerEncoder",

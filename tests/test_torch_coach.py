@@ -320,61 +320,56 @@ def runs(tmp_path_factory):
     the second batch."""
     tmp = tmp_path_factory.mktemp("coach")
     data = faces(STEPS, 1, seed=30)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(4)
-    try:
-        with pytest.MonkeyPatch.context() as mp:
-            slim_nets(mp)
-            opts = TrainOptions(exp_dir=str(tmp / "run"), **PSP)
-            port, other = port_coach(opts), port_coach(opts)
-            start = to_jax_variables(port.model)
-            params0 = {n: p.detach().numpy().copy() for n, p in port.trainable}
-            jax_c = jax_coach(port, jax_opts(opts))
-            jax_steps = in_thread(lambda: [(jax_c.train_step(b), jax_state(jax_c, params0))
-                                           for b in data])
-            steps = []
-            for i, batch in enumerate(data):
-                got = port.train_step(batch)
-                with_onednn_off(lambda: other.train_step(batch))
-                steps.append(dict(got=got, state=port_state(port, params0),
-                                  noise=backend_noise(port, other)))
-                if i == 0:
-                    port.checkpoint(tmp / "mid")
-            del other
+    with pytest.MonkeyPatch.context() as mp:
+        slim_nets(mp)
+        opts = TrainOptions(exp_dir=str(tmp / "run"), **PSP)
+        port, other = port_coach(opts), port_coach(opts)
+        start = to_jax_variables(port.model)
+        params0 = {n: p.detach().numpy().copy() for n, p in port.trainable}
+        jax_c = jax_coach(port, jax_opts(opts))
+        jax_steps = in_thread(lambda: [(jax_c.train_step(b), jax_state(jax_c, params0))
+                                       for b in data])
+        steps = []
+        for i, batch in enumerate(data):
+            got = port.train_step(batch)
+            with_onednn_off(lambda: other.train_step(batch))
+            steps.append(dict(got=got, state=port_state(port, params0),
+                              noise=backend_noise(port, other)))
+            if i == 0:
+                port.checkpoint(tmp / "mid")
+        del other
 
-            class Detached(Coach):
-                def _restyle_forward(self, x, train, stage, impl="auto"):
-                    n = x.shape[0]
-                    y_hat = self.avg_image[None].expand((n,) + tuple(self.avg_image.shape))
-                    latent, outputs = None, []
-                    for _ in range(self.opts.n_iters_per_batch):
-                        x_input = torch.cat([x, y_hat.detach()], dim=-1)
-                        y_hat, latent = self.model(
-                            x_input, latent=None if latent is None else latent.detach(),
-                            latent_avg=self.latent_avg, train=train, stage=stage, impl=impl)
-                        outputs.append((y_hat, latent))
-                    return outputs
+        class Detached(Coach):
+            def _restyle_forward(self, x, train, stage, impl="auto"):
+                n = x.shape[0]
+                y_hat = self.avg_image[None].expand((n,) + tuple(self.avg_image.shape))
+                latent, outputs = None, []
+                for _ in range(self.opts.n_iters_per_batch):
+                    x_input = torch.cat([x, y_hat.detach()], dim=-1)
+                    y_hat, latent = self.model(
+                        x_input, latent=None if latent is None else latent.detach(),
+                        latent_avg=self.latent_avg, train=train, stage=stage, impl=impl)
+                    outputs.append((y_hat, latent))
+                return outputs
 
-            detached = seed_state(Detached(opts, decoder_cfg=SG3Config(**TINY), device="cpu"), 0)
-            detached.load_jax_state(start)
-            _, detached_grads = detached.loss_and_grads(data[0])
-            detached_grads = {n: g.numpy() for n, g in detached_grads.items()}
-            del detached
+        detached = seed_state(Detached(opts, decoder_cfg=SG3Config(**TINY), device="cpu"), 0)
+        detached.load_jax_state(start)
+        _, detached_grads = detached.loss_and_grads(data[0])
+        detached_grads = {n: g.numpy() for n, g in detached_grads.items()}
+        del detached
 
-            # The loss nets are seeded as the run's were (the checkpoint holds
-            # the trained state only); the restore replaces the rest.
-            resumed = port_coach(TrainOptions(**{**vars(opts), "exp_dir": str(tmp / "resumed")}))
-            resumed.restore(tmp / "mid")
-            resumed_step = resumed.global_step
-            resumed.train(iter(data[1:2]), max_steps=2)
-            resumed = dict(state=port_state(resumed, params0), global_step=resumed.global_step)
-            jax_loaded = jinference.load_encoder(str(tmp / "mid"))[1:]
-            (tmp / "mid" / "arrays.npz").unlink()  # ~1.3 GB at this size
-            for step, (ref, ref_state) in zip(steps, jax_steps()):
-                step.update(ref=ref, ref_state=ref_state)
-            del jax_c
-    finally:
-        torch.set_num_threads(threads)
+        # The loss nets are seeded as the run's were (the checkpoint holds
+        # the trained state only); the restore replaces the rest.
+        resumed = port_coach(TrainOptions(**{**vars(opts), "exp_dir": str(tmp / "resumed")}))
+        resumed.restore(tmp / "mid")
+        resumed_step = resumed.global_step
+        resumed.train(iter(data[1:2]), max_steps=2)
+        resumed = dict(state=port_state(resumed, params0), global_step=resumed.global_step)
+        jax_loaded = jinference.load_encoder(str(tmp / "mid"))[1:]
+        (tmp / "mid" / "arrays.npz").unlink()  # ~1.3 GB at this size
+        for step, (ref, ref_state) in zip(steps, jax_steps()):
+            step.update(ref=ref, ref_state=ref_state)
+        del jax_c
     frozen = [p for m in (port.model.decoder, *port.loss_nets().values()) for p in m.parameters()]
     return dict(steps=steps, tmp=tmp, start=start, opts=opts, detached=detached_grads,
                 resumed=resumed, resumed_step=resumed_step, jax_loaded=jax_loaded,

@@ -75,45 +75,40 @@ def runs(tmp_path_factory):
     on the same batches and z, the state after each; then `validate`."""
     tmp = tmp_path_factory.mktemp("e4e")
     data = faces(STEPS + 1, 1, seed=40)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(4)
-    try:
-        with pytest.MonkeyPatch.context() as mp:
-            slim_nets(mp)
-            opts = E4eTrainOptions(exp_dir=str(tmp), **E4E)
-            port, other = port_coach(opts, seed=1), port_coach(opts, seed=1)
-            jax_c = jax_coach(port, jax_opts(opts))
-            disc0 = {n: p.detach().numpy().copy() for n, p in port.disc.named_parameters()}
-            zs, key = [], jax_c._rng  # the draws of the JAX coach's D steps
-            for _ in range(STEPS):
-                key, sub = jax.random.split(key)
-                zs.append(np.asarray(jax.random.normal(sub, (1, jax_c.decoder_cfg.z_dim))))
+    with pytest.MonkeyPatch.context() as mp:
+        slim_nets(mp)
+        opts = E4eTrainOptions(exp_dir=str(tmp), **E4E)
+        port, other = port_coach(opts, seed=1), port_coach(opts, seed=1)
+        jax_c = jax_coach(port, jax_opts(opts))
+        disc0 = {n: p.detach().numpy().copy() for n, p in port.disc.named_parameters()}
+        zs, key = [], jax_c._rng  # the draws of the JAX coach's D steps
+        for _ in range(STEPS):
+            key, sub = jax.random.split(key)
+            zs.append(np.asarray(jax.random.normal(sub, (1, jax_c.decoder_cfg.z_dim))))
 
-            def jax_run():
-                out = [(jax_c.train_step(b), jax_state(jax_c), disc_state(jax_c),
-                        list(jax_c.real_w_pool.ws), list(jax_c.fake_w_pool.ws))
-                       for b in data[:STEPS]]
-                return out, jax_c.validate(data[STEPS:])
+        def jax_run():
+            out = [(jax_c.train_step(b), jax_state(jax_c), disc_state(jax_c),
+                    list(jax_c.real_w_pool.ws), list(jax_c.fake_w_pool.ws))
+                   for b in data[:STEPS]]
+            return out, jax_c.validate(data[STEPS:])
 
-            jax_steps = in_thread(jax_run)
-            steps = []
-            for batch, z in zip(data[:STEPS], zs):
-                stage = port._current_stage()
-                got = port.train_step(batch, z=z)
-                with_onednn_off(lambda: other.train_step(batch, z=z))
-                steps.append(dict(got=got, stage=stage, state=port_state(port),
-                                  noise=backend_noise(port, other), disc=disc_state(port),
-                                  disc_noise=disc_noise(port, other),
-                                  pools=(list(port.real_w_pool.ws), list(port.fake_w_pool.ws))))
-            del other
-            val = dict(got=port.validate(data[STEPS:]))
-            ref_steps, val["ref"] = jax_steps()
-            for step, (ref, ref_state, ref_disc, real, fake) in zip(steps, ref_steps):
-                step.update(ref=ref, ref_state=ref_state, ref_disc=ref_disc,
-                            pools=list(zip(step["pools"], (real, fake))))
-            del jax_c
-    finally:
-        torch.set_num_threads(threads)
+        jax_steps = in_thread(jax_run)
+        steps = []
+        for batch, z in zip(data[:STEPS], zs):
+            stage = port._current_stage()
+            got = port.train_step(batch, z=z)
+            with_onednn_off(lambda: other.train_step(batch, z=z))
+            steps.append(dict(got=got, stage=stage, state=port_state(port),
+                              noise=backend_noise(port, other), disc=disc_state(port),
+                              disc_noise=disc_noise(port, other),
+                              pools=(list(port.real_w_pool.ws), list(port.fake_w_pool.ws))))
+        del other
+        val = dict(got=port.validate(data[STEPS:]))
+        ref_steps, val["ref"] = jax_steps()
+        for step, (ref, ref_state, ref_disc, real, fake) in zip(steps, ref_steps):
+            step.update(ref=ref, ref_state=ref_state, ref_disc=ref_disc,
+                        pools=list(zip(step["pools"], (real, fake))))
+        del jax_c
     decoder = [p.requires_grad for p in port.model.decoder.parameters()]
     return dict(steps=steps, val=val, opts=opts, disc0=disc0, decoder_requires_grad=decoder)
 

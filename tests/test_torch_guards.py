@@ -326,10 +326,27 @@ def _conv_calls():
         r, x = leaf(1, 2, 64, 64, 3), leaf(1, 2, 64, 64, 3)
         return d(torch.tanh(r), torch.tanh(x)).sum(), [r, x]
 
+    def inception():
+        """InceptionV3 of the FID, its rectangular kernels included."""
+        from stylegan3_editing_tpu_torch.models.backbones.inception import InceptionV3Features
+
+        x = leaf(1, 40, 40, 3)
+        net = InceptionV3Features(generator=torch.Generator().manual_seed(0))
+        return net(torch.tanh(x)).square().mean(), [x]
+
+    def mobilenet_v2():
+        """A new registry family: depthwise convs (``groups``) and ReLU6."""
+        from stylegan3_editing_tpu_torch.models.backbones.mobilenet import MobileNetV2Stages
+
+        x = leaf(1, 32, 32, 3)
+        net = MobileNetV2Stages(generator=torch.Generator().manual_seed(0))
+        return sum(f.square().mean() for f in net(x)), [x]
+
     return {"modulated_conv2d_3x3": modulated, "alexnet_Conv2d": alexnet, "upfirdn2d": fir,
             "styleclip_mapper_step": mapper_step, "restyle_coach_step": restyle_coach_step,
             "squeezenet": squeezenet, "msssim": ms_ssim, "deit": deit,
-            "efficientnet_b0": efficientnet, "set_discriminator": set_discriminator}
+            "efficientnet_b0": efficientnet, "set_discriminator": set_discriminator,
+            "inception_v3": inception, "mobilenet_v2": mobilenet_v2}
 
 
 @pytest.mark.parametrize("op", sorted(_conv_calls()))
@@ -803,3 +820,69 @@ def test_fused_filtered_lrelu_backward_is_once_differentiable(monkeypatch):
     (gx,) = torch.autograd.grad(y.square().sum(), x, create_graph=True)
     with pytest.raises(RuntimeError, match="once_differentiable"):
         gx.sum().backward()
+
+
+def test_fid_and_new_backbone_modules_import_without_optional_packages():
+    """InceptionV3, the conditional FID, the spectrum and the registry's
+    DenseNet, MobileNet, ShuffleNet, RegNet and CLIP-RN50 modules import with
+    JAX, Pillow and scipy (which `frechet_distance` takes when it runs)
+    unavailable and leave JAX unloaded."""
+    blocked = ("PIL", "imageio", "scipy", "sklearn", "cv2", "orbax", "jax", "flax")
+    code = ("import sys, json\n"
+            f"for name in {blocked!r}:\n"
+            "    sys.modules[name] = None\n"
+            "import stylegan3_editing_tpu_torch.models.backbones.inception, "
+            "stylegan3_editing_tpu_torch.models.backbones.densenet, "
+            "stylegan3_editing_tpu_torch.models.backbones.mobilenet, "
+            "stylegan3_editing_tpu_torch.models.backbones.shufflenet, "
+            "stylegan3_editing_tpu_torch.models.backbones.regnet, "
+            "stylegan3_editing_tpu_torch.models.backbones.clip_resnet, "
+            "stylegan3_editing_tpu_torch.setgan.metrics, "
+            "stylegan3_editing_tpu_torch.utils.spectrum\n"
+            "print(json.dumps(sorted(m for m in sys.modules if sys.modules[m] is not None "
+            f"and m.split('.')[0] in {blocked + ('stylegan3_editing_tpu',)!r})))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("entry", ["inception_feature_fn", "make_fid_eval_fn"])
+def test_fid_entry_points_raise_without_a_card(monkeypatch, entry):
+    """The FID's feature extractor and the CLI's evaluation raise without a
+    card unless they are given ``device="cpu"``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from stylegan3_editing_tpu_torch.models.backbones.inception import inception_feature_fn
+    from stylegan3_editing_tpu_torch.scripts import train_setgan
+
+    call = {"inception_feature_fn": lambda: inception_feature_fn(),
+            "make_fid_eval_fn": lambda: train_setgan.make_fid_eval_fn(
+                train_setgan.SetGANCliOptions(), dataset=None)}[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+
+
+@pytest.mark.parametrize("what", ["sync_across_hosts", "compute", "one_rank"])
+def test_fid_sync_refuses_more_than_one_rank(monkeypatch, what):
+    """Under a process group of more than one rank the FID's moments would
+    need a cross-rank sum: `sync_across_hosts` and `ConditionalFID.compute`
+    raise instead of giving a local answer. A group of one rank is local."""
+    import torch.distributed as dist
+
+    from stylegan3_editing_tpu_torch.setgan.metrics import ConditionalFID, FeatureStats
+
+    monkeypatch.setattr(dist, "is_available", lambda: True)
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda *a, **k: 1 if what == "one_rank" else 2)
+    monkeypatch.setattr(dist, "get_rank", lambda *a, **k: 0)
+    feats = np.random.RandomState(0).randn(4, 3)
+    st = FeatureStats()
+    st.append(feats)
+    fid = ConditionalFID(lambda x: x)
+    fid.append_real(0, feats)
+    fid.append_fake(0, feats + 1)
+    if what == "one_rank":
+        assert st.sync_across_hosts() is st and np.isfinite(fid.compute("agg"))
+        return
+    with pytest.raises(NotImplementedError, match="#10"):
+        st.sync_across_hosts() if what == "sync_across_hosts" else fid.compute("agg")

@@ -1070,3 +1070,67 @@ def test_double_backward_through_the_fused_filtered_lrelu_raises(cuda_device):
     (gx,) = torch.autograd.grad(y.square().sum(), x, create_graph=True)
     with pytest.raises(RuntimeError, match="once_differentiable"):
         gx.sum().backward()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["inception_v3", "densenet121", "regnety_002", "clip_vit_b32"])
+def test_fid_network_and_new_families_card_match_cpu(cuda_device, name):
+    """InceptionV3 (the FID's 2048-d features) and new registry families
+    (their four stages) at a slim batch of 2, seeded, on the card against
+    the CPU within 1e-4 of max |ref| (fp32 sum order; TF32 would read ~1e-3)."""
+    from stylegan3_editing_tpu_torch.models.backbones.inception import InceptionV3Features
+    from stylegan3_editing_tpu_torch.models.backbones.registry import make_feature_network
+
+    gen = torch.Generator().manual_seed(21)
+    if name == "inception_v3":
+        net, side = InceptionV3Features(generator=gen), 64
+    else:
+        net, spec = make_feature_network(name, generator=gen)
+        side = spec.fixed_input_res or 64
+    x = torch.rand((2, side, side, 3), generator=gen) * 2 - 1
+    on_card = copy.deepcopy(net).to(cuda_device)
+    with torch.no_grad():
+        want, got = net.eval()(x), on_card.eval()(x.to(cuda_device))
+    for w, g in (zip(want, got) if isinstance(want, list) else [(want, got)]):
+        assert torch.isfinite(g).all() and g.shape == w.shape
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+@pytest.mark.gpu
+def test_fid_evaluation_through_the_kernels_matches_plain(cuda_device, tmp_path):
+    """`train_setgan.make_fid_eval_fn` on a slim trainer (SG3-T 64² stem,
+    the 8-layer IR-SE trunk) over 2 classes of 2 images: 7 launches a
+    `generate` call through the kernels, and the FID with the generator's
+    fp32 route through the kernels within 1e-3 relative of the same with
+    ``impl="ref"`` (the fp32 route is the plain version's arithmetic)."""
+    import functools
+
+    from stylegan3_editing_tpu_torch.scripts import train_setgan
+    from stylegan3_editing_tpu_torch.setgan import SetGANTrainConfig, SetGANTrainer
+
+    cfg = sg3_t_config(64, **SLIM_T)
+    tr = SetGANTrainer(SetGANTrainConfig(batch_size=2, d_backbones=("tiny_proj",),
+                                         encoder_num_layers=8, g_attn_layers=1,
+                                         d_attn_layers=1, d_latent_size=32), cfg,
+                       device=cuda_device)
+
+    class Classes:
+        images = np.tanh(np.random.RandomState(22).randn(4, 64, 64, 3)).astype(np.float32)
+        classes = ["a", "b"]
+        class_to_paths = {"a": [0, 1], "b": [2, 3]}
+
+        def load(self, i):
+            return self.images[i]
+
+    opts = train_setgan.SetGANCliOptions(device="cuda", fid_classes=2, fid_items_per_class=2)
+    run_g, fids = tr._run_g, {}
+    for impl in ("auto", "ref"):
+        tr._run_g = functools.partial(run_g, force_fp32=True, impl=impl)
+        flrelu_cuda.reset_launches()
+        fids[impl] = train_setgan.make_fid_eval_fn(opts, Classes())(tr)
+        torch.cuda.synchronize()
+        n_layers = sum(s.up_filter is not None for s in build_synthesis_layout(cfg).layers)
+        assert flrelu_cuda.launches["filtered_lrelu_fwd"] == (2 * n_layers if impl == "auto"
+                                                              else 0)
+    assert np.isfinite(fids["auto"]) and fids["auto"] >= 0
+    assert abs(fids["auto"] - fids["ref"]) <= 1e-3 * abs(fids["ref"])

@@ -57,40 +57,35 @@ def trained(tmp_path_factory):
     rng = np.random.RandomState(50)
     for i in range(4):
         Image.fromarray(rng.randint(0, 256, (64, 64, 3), dtype=np.uint8)).save(data / f"{i}.png")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(4)
     runs = {}
-    try:
-        with pytest.MonkeyPatch.context() as mp:
-            slim_nets(mp)
-            opts = parse_dataclass(train_restyle_psp.PspCliOptions, SLIM + [
-                "--train_root", str(data), "--exp_dir", str(tmp / "psp")])
-            runs["psp"] = train_restyle_psp.main(opts)
-            e4e = SLIM + ["--train_root", str(data), "--save_interval", "2",
-                          "--w_discriminator_lambda", "0.1",
-                          "--w_pool_size", "2", "--d_reg_every", "2",
-                          "--encoder_type", "ProgressiveBackboneEncoder"]
-            runs["e4e"] = train_restyle_e4e.main(parse_dataclass(
-                train_restyle_e4e.E4eCliOptions, e4e + ["--exp_dir", str(tmp / "e4e")]))
-            runs["resumed"] = train_restyle_e4e.main(parse_dataclass(
-                train_restyle_e4e.E4eCliOptions, e4e + [
-                    "--exp_dir", str(tmp / "resumed"), "--max_steps", "3",
-                    "--resume_training_from_ckpt",
-                    str(tmp / "e4e" / "checkpoints" / "iteration_2")]))
-            x = np.tanh(rng.randn(1, 256, 256, 6)).astype(np.float32)
-            codes = {}
-            for name in runs:
-                ckpt = tmp / name / "checkpoints" / "final_model"
-                model, _ = inference_utils.load_encoder(ckpt, device="cpu")
-                jmodel, jvars, jopts = jinference.load_encoder(str(ckpt))
-                with torch.no_grad():
-                    got, own = (m.encode(torch.from_numpy(x),
-                                         latent_avg=m.decoder.mapping.w_avg).numpy()
-                                for m in (model, runs[name].model))
-                ref = jax_codes(jmodel, jvars, jnp.asarray(x))
-                codes[name] = (got, np.asarray(ref), jopts, own)
-    finally:
-        torch.set_num_threads(threads)
+    with pytest.MonkeyPatch.context() as mp:
+        slim_nets(mp)
+        opts = parse_dataclass(train_restyle_psp.PspCliOptions, SLIM + [
+            "--train_root", str(data), "--exp_dir", str(tmp / "psp")])
+        runs["psp"] = train_restyle_psp.main(opts)
+        e4e = SLIM + ["--train_root", str(data), "--save_interval", "2",
+                      "--w_discriminator_lambda", "0.1",
+                      "--w_pool_size", "2", "--d_reg_every", "2",
+                      "--encoder_type", "ProgressiveBackboneEncoder"]
+        runs["e4e"] = train_restyle_e4e.main(parse_dataclass(
+            train_restyle_e4e.E4eCliOptions, e4e + ["--exp_dir", str(tmp / "e4e")]))
+        runs["resumed"] = train_restyle_e4e.main(parse_dataclass(
+            train_restyle_e4e.E4eCliOptions, e4e + [
+                "--exp_dir", str(tmp / "resumed"), "--max_steps", "3",
+                "--resume_training_from_ckpt",
+                str(tmp / "e4e" / "checkpoints" / "iteration_2")]))
+        x = np.tanh(rng.randn(1, 256, 256, 6)).astype(np.float32)
+        codes = {}
+        for name in runs:
+            ckpt = tmp / name / "checkpoints" / "final_model"
+            model, _ = inference_utils.load_encoder(ckpt, device="cpu")
+            jmodel, jvars, jopts = jinference.load_encoder(str(ckpt))
+            with torch.no_grad():
+                got, own = (m.encode(torch.from_numpy(x),
+                                     latent_avg=m.decoder.mapping.w_avg).numpy()
+                            for m in (model, runs[name].model))
+            ref = jax_codes(jmodel, jvars, jnp.asarray(x))
+            codes[name] = (got, np.asarray(ref), jopts, own)
     # The checkpoints written, then their arrays dropped (~1 GB each at this size:
     # the encoder, its Ranger state and the decoder).
     written = {}
