@@ -225,7 +225,29 @@ Phases (any failure exits non-zero before the result lines):
    four stages card vs CPU (`EVAL_TOL`), ms per image; (d) one fp32 D and
    G step at batch 2 with D = CLIP ViT-B/32 + RegNetY-032 through the
    kernels against ``impl="ref"`` (`MAPPER_LOSS_TOL`, `GRAD_TOL`; 14 + 7
-   launches).
+   launches);
+18. SetGAN's progressive growth and the other stems: (a) a stem snapshot
+   from one `train()` step at `train_setgan_stem.sh`'s recipe (256^2), then
+   `train_setgan.build_trainer` with ``--superres --path_stem`` at
+   `train_setgan_superres.sh`'s recipe (512^2 grown x2 with 4 head layers,
+   batch 16, references 1-2, candidates 1-2, d_latent 128, the CLI's default
+   backbones, no remats) and `train()` for a warm-up and 3 timed steps (s per
+   D step, G step and step, images/s, peak memory, a traced step): 11
+   launches of #1 a G forward and 22 + 11 a step, the 17 carried leaves
+   equal to the snapshot's and every frozen tensor byte for byte after the
+   steps, a batch-2 fp32 D and G step through the kernels against
+   ``impl="ref"``, and #1 and #2 on each of the grown decoder's 11 layers at
+   batch 32 against the plain versions, timed beside them and their bounds;
+   (b) the pretrained recipe (ReStyle-encoder mode, both frozen) from a
+   reference-format ReStyle e4e ``.pt`` and an SG3-T 256 ``.pt``: the merged
+   weights equal the converted files before and after 2 steps; (c) the
+   ``"sg2"`` and ``"fastgan"`` stems at the stem recipe: s per step, peak
+   memory, a traced step, and a batch-2 fp32 G forward card vs CPU with
+   G's gradients through one cotangent of the images; (d) the
+   rosinality `SG2Generator` and `SG2Discriminator` at the FFHQ 1024 widths,
+   batch 4, fixed noise, card vs CPU within `EVAL_TOL`; (e)
+   `convert_checkpoint --kind sg2_stem / backbone / class_embedding` on
+   reference-format files, each tree equal to its source.
 
 PyTorch's TF32 flags stay at their defaults: matmuls run in fp32 by
 default, and the port holds its cuDNN convs to fp32 itself (`device.conv2d`;
@@ -2445,6 +2467,123 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.detach().view(torch.int32) if t.element_size() == 4 else t.detach()
 
 
+def _to(tree, device):
+    """A nest of dicts of tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _bwd_rows(dev, card, layers, bwd_kernel_call, bwd_plain_call, batch, seed, what):
+    """Kernel #2 on ``layers`` at ``batch`` in each layer's dtype (x scaled
+    by 60 so that the clamp bites): dx against the plain version on every
+    image (in calls of `PLAIN_CHUNK`), db = Σ dx within `DB_TOL`, timed
+    beside the plain version and the bound (`flrelu_bwd_work`, every FLOP at
+    the fp32 rate: these separable layers run their dy up pass on the CUDA
+    cores). Returns (ms, bound ms, plain ms, max abs err)."""
+    from stylegan3_editing_tpu_torch.ops import flrelu_cuda
+
+    err_max, tot = 0.0, dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    with torch.no_grad():
+        for i, s in enumerate(layers):
+            dtype = torch.bfloat16 if s.use_bf16 else torch.float32
+            gen = torch.Generator(device=dev).manual_seed(seed + i)
+            x = (torch.randn((batch, s.in_size[1], s.in_size[0], s.out_channels), generator=gen,
+                             device=dev) * 60).to(dtype)
+            b = torch.randn((s.out_channels,), generator=gen, device=dev).to(dtype)
+            out_h, out_w = (flrelu_cuda.output_size(side, s.up_factor, p0, p1, len(s.up_filter),
+                                                    s.down_filter.shape[0])
+                            for side, p0, p1 in ((s.in_size[1], s.padding[2], s.padding[3]),
+                                                 (s.in_size[0], s.padding[0], s.padding[1])))
+            dy = torch.randn((batch, out_h, out_w, s.out_channels), generator=gen,
+                             device=dev).to(dtype)
+            dx = bwd_kernel_call(s, dy, x, b)
+            atol, rtol = BF16_TOL if s.use_bf16 else FP32_TOL
+            db_ref = torch.zeros(s.out_channels, device=dev)
+            for n in range(0, batch, PLAIN_CHUNK):
+                ref = bwd_plain_call(s, dy[n:n + PLAIN_CHUNK].float(),
+                                     x[n:n + PLAIN_CHUNK].float(), b.float())
+                err = (dx[n:n + PLAIN_CHUNK].float() - ref).abs()
+                if not bool((err <= atol + rtol * ref.abs()).all()):
+                    raise SystemExit(f"backward kernel disagrees with the plain version on "
+                                     f"{s.name}, {what} batch {batch}, images {n}..")
+                err_max = max(err_max, float(err.max()))
+                db_ref += ref.sum((0, 1, 2))
+                del ref, err
+            db_err = float((dx.float().sum((0, 1, 2)) - db_ref).abs().max())
+            db_tol = DB_TOL[s.use_bf16] * float(db_ref.abs().max())
+            if db_err > db_tol:
+                raise SystemExit(f"db of the backward kernel disagrees on {s.name}: "
+                                 f"{db_err:.3e} > {db_tol:.3e}")
+            k_ms = time_ms(lambda: bwd_kernel_call(s, dy, x, b), 5)
+
+            def plain_batch():
+                for n in range(0, batch, PLAIN_CHUNK):
+                    bwd_plain_call(s, dy[n:n + PLAIN_CHUNK], x[n:n + PLAIN_CHUNK], b)
+
+            p_ms = time_ms(plain_batch, 1, warmup=0)  # the check above warmed it
+            nbytes, dy_up_flops, other_flops = flrelu_bwd_work(
+                tuple(x.shape), tuple(dy.shape), s.up_factor, len(s.up_filter),
+                s.down_filter.shape[0], s.down_filter.ndim == 2, x.element_size())
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = (dy_up_flops + other_flops) / FP32_FLOPS * 1e3
+            bound = max(bytes_ms, ops_ms)
+            for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", bound)):
+                tot[key] += v
+            print(f"time bwd {s.name} {str(dtype)[6:]} {what} batch {batch}, up {s.up_factor}, "
+                  f"{len(s.up_filter)}-tap up, {s.down_filter.shape[0]}-tap separable down, "
+                  f"{s.out_channels} channels: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                  f"bound {bound:.4f} ms ({'operations' if ops_ms > bytes_ms else 'bytes'}: "
+                  f"{nbytes / 1e6:.1f} MB, {(dy_up_flops + other_flops) / 1e9:.2f} GFLOP); db "
+                  f"max abs err {db_err:.3e} (tol {db_tol:.3e}) {card}")
+            del x, b, dy, dx
+            torch.cuda.empty_cache()
+    print(f"kernel #2, {what} batch {batch}: {len(layers)} layers against the plain version ok "
+          f"(max abs err {err_max:.3e}); {tot['ms']:.4f} ms a G step's backward, alone, plain "
+          f"{tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms {card}")
+    return tot["ms"], tot["bound_ms"], tot["plain_ms"], err_max
+
+
+def _group_check(what, group, got, want, loss_got, loss_want, tol=GRAD_TOL):
+    """Losses within `MAPPER_LOSS_TOL`, every gradient within ``tol`` of the
+    group's largest |entry| of ``want``."""
+    atol_rel, floor = MAPPER_LOSS_TOL
+    scale = max(float(v.abs().max()) for v in want.values())
+    worst = max((float((got[k] - v).abs().max()), k) for k, v in want.items())
+    print(f"{what} {group} step, batch 2 fp32: loss {loss_got:.8f} vs {loss_want:.8f}; "
+          f"{len(want)} gradients, worst max abs err {worst[0]:.3e} on {worst[1]} (tol {tol:g} "
+          f"of the group's max |grad| {scale:.4g})")
+    return abs(loss_got - loss_want) <= atol_rel * abs(loss_want) + floor and \
+        worst[0] <= tol * scale
+
+
+def _steps_vs(tr, batch, z, draws, what, launches=None):
+    """One fp32 D and G step at batch 2 through the kernels and with
+    ``impl="ref"``: `_group_check` on each, and with ``launches`` the
+    kernels' counts of the kernels' run. Returns False on a miss."""
+    from stylegan3_editing_tpu_torch.ops import flrelu_cuda
+
+    placed, runs = tr._place(batch), {}
+    z, draws = z.to(tr.device), _to(draws, tr.device)
+    for impl in ("auto", "ref"):
+        if launches is not None:
+            flrelu_cuda.reset_launches()
+        d = tr.d_loss_and_grads(placed, z, draws, 2.0, force_fp32=True, impl=impl)
+        g = tr.g_loss_and_grads(placed, z, draws, 2.0, force_fp32=True, impl=impl)
+        runs[impl] = {"D": (float(d[0]), d[2]), "G": (float(g[0]), g[2])}
+        del d, g
+        if impl == "auto" and launches is not None:
+            counted = dict(flrelu_cuda.launches)
+    ok = True
+    if launches is not None:
+        ok = counted == launches
+        print(f"{what} launches {counted} (expected {launches})")
+    for group in ("D", "G"):
+        (la, ga), (lb, gb) = runs["auto"][group], runs["ref"][group]
+        ok = _group_check(what, group, ga, gb, la, lb) and ok
+    return ok
+
+
 def setgan_training_phase(dev, card, bwd_kernel_call, bwd_plain_call) -> float:
     """Phase 16: SetGAN training at `train_setgan_stem.sh`'s recipe, 256²:
     (a) `SetGANTrainer.train_step` (SG3-T, IR-SE-50, DeiT-base + EfficientNet-
@@ -2585,93 +2724,15 @@ def setgan_training_phase(dev, card, bwd_kernel_call, bwd_plain_call) -> float:
 
     # (b) Kernels against impl="ref": one D and one G step at batch 2 in fp32.
     b2 = {k: v[:2] for k, v in batches[0].items()}
-    placed = tr._place(b2)
     z2 = torch.randn((2, SETGAN_CANDS[1], cfg_t.z_dim),
-                     generator=torch.Generator().manual_seed(194)).to(dev)
-    draws = tr.draw(2, SETGAN_CANDS[1])
-    runs = {}
-    for impl in ("auto", "ref"):
-        d = tr.d_loss_and_grads(placed, z2, draws, 2.0, force_fp32=True, impl=impl)
-        g = tr.g_loss_and_grads(placed, z2, draws, 2.0, force_fp32=True, impl=impl)
-        runs[impl] = {"D": (float(d[0]), d[2]), "G": (float(g[0]), g[2])}
-        del d, g
-    atol_rel, floor = MAPPER_LOSS_TOL
-    ok = True
-    for group in ("D", "G"):
-        (la, ga), (lr_, gr) = runs["auto"][group], runs["ref"][group]
-        scale = max(float(v.abs().max()) for v in gr.values())
-        worst = max((float((ga[k] - v).abs().max()), k) for k, v in gr.items())
-        loss_ok = abs(la - lr_) <= atol_rel * abs(lr_) + floor
-        ok = ok and loss_ok and worst[0] <= GRAD_TOL * scale
-        print(f"setgan {group} step, batch 2 fp32, kernels vs impl='ref': loss {la:.8f} vs "
-              f"{lr_:.8f}; {len(gr)} gradients, worst max abs err {worst[0]:.3e} on {worst[1]} "
-              f"(tol {GRAD_TOL:g} of the group's max |grad| {scale:.4g})")
-    del runs, placed
-    torch.cuda.empty_cache()
-    if not ok:
+                     generator=torch.Generator().manual_seed(194))
+    if not _steps_vs(tr, b2, z2, tr.draw(2, SETGAN_CANDS[1]), "setgan, kernels vs impl='ref',"):
         raise SystemExit("SetGAN's steps through the kernels disagree with impl='ref'")
+    torch.cuda.empty_cache()
 
     # #2 alone on SG3-T 256's layers at batch 64 (B·C), in each layer's dtype.
-    batch = SETGAN_BATCH * SETGAN_CANDS[1]
-    bwd_err, tot = 0.0, dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
-    with torch.no_grad():
-        for i, s in enumerate(t_layers):
-            dtype = torch.bfloat16 if s.use_bf16 else torch.float32
-            gen = torch.Generator(device=dev).manual_seed(1600 + i)
-            x = (torch.randn((batch, s.in_size[1], s.in_size[0], s.out_channels), generator=gen,
-                             device=dev) * 60).to(dtype)
-            b = torch.randn((s.out_channels,), generator=gen, device=dev).to(dtype)
-            out_h, out_w = (flrelu_cuda.output_size(side, s.up_factor, p0, p1, len(s.up_filter),
-                                                    s.down_filter.shape[0])
-                            for side, p0, p1 in ((s.in_size[1], s.padding[2], s.padding[3]),
-                                                 (s.in_size[0], s.padding[0], s.padding[1])))
-            dy = torch.randn((batch, out_h, out_w, s.out_channels), generator=gen,
-                             device=dev).to(dtype)
-            dx = bwd_kernel_call(s, dy, x, b)
-            atol, rtol = BF16_TOL if s.use_bf16 else FP32_TOL
-            db_ref = torch.zeros(s.out_channels, device=dev)
-            for n in range(0, batch, PLAIN_CHUNK):
-                ref = bwd_plain_call(s, dy[n:n + PLAIN_CHUNK].float(), x[n:n + PLAIN_CHUNK].float(),
-                                     b.float())
-                err = (dx[n:n + PLAIN_CHUNK].float() - ref).abs()
-                if not bool((err <= atol + rtol * ref.abs()).all()):
-                    raise SystemExit(f"backward kernel disagrees with the plain version on "
-                                     f"{s.name}, SG3-T 256 batch {batch}, images {n}..")
-                bwd_err = max(bwd_err, float(err.max()))
-                db_ref += ref.sum((0, 1, 2))
-                del ref, err
-            db_err = float((dx.float().sum((0, 1, 2)) - db_ref).abs().max())
-            db_tol = DB_TOL[s.use_bf16] * float(db_ref.abs().max())
-            if db_err > db_tol:
-                raise SystemExit(f"db of the backward kernel disagrees on {s.name}: "
-                                 f"{db_err:.3e} > {db_tol:.3e}")
-            k_ms = time_ms(lambda: bwd_kernel_call(s, dy, x, b), 5)
-
-            def plain_batch():
-                for n in range(0, batch, PLAIN_CHUNK):
-                    bwd_plain_call(s, dy[n:n + PLAIN_CHUNK], x[n:n + PLAIN_CHUNK], b)
-
-            p_ms = time_ms(plain_batch, 2, warmup=1)
-            nbytes, dy_up_flops, other_flops = flrelu_bwd_work(
-                tuple(x.shape), tuple(dy.shape), s.up_factor, len(s.up_filter),
-                s.down_filter.shape[0], s.down_filter.ndim == 2, x.element_size())
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = (dy_up_flops + other_flops) / FP32_FLOPS * 1e3
-            bound = max(bytes_ms, ops_ms)
-            for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", bound)):
-                tot[key] += v
-            print(f"time bwd {s.name} {str(dtype)[6:]} SG3-T 256 batch {batch}, up {s.up_factor}, "
-                  f"{len(s.up_filter)}-tap up, {s.down_filter.shape[0]}-tap separable down, "
-                  f"{s.out_channels} channels (dy up pass on the CUDA cores): kernel {k_ms:.4f} "
-                  f"ms, plain {p_ms:.4f} ms, bound {bound:.4f} ms "
-                  f"({'operations' if ops_ms > bytes_ms else 'bytes'}: {nbytes / 1e6:.1f} MB, "
-                  f"{(dy_up_flops + other_flops) / 1e9:.2f} GFLOP); db max abs err {db_err:.3e} "
-                  f"(tol {db_tol:.3e}) {card}")
-            del x, b, dy, dx
-            torch.cuda.empty_cache()
-    print(f"kernel #2, SG3-T 256 batch {batch}: {n_layers} layers against the plain version ok "
-          f"(max abs err {bwd_err:.3e}); {tot['ms']:.4f} ms a G step's backward, alone, plain "
-          f"{tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms {card}")
+    *_, bwd_err = _bwd_rows(dev, card, t_layers, bwd_kernel_call, bwd_plain_call,
+                            SETGAN_BATCH * SETGAN_CANDS[1], 1600, "SG3-T 256")
 
     # (d) Inference after training: G_ema's candidates.
     fakes = tr.generate(batches[0]["reference"][:2], SETGAN_CANDS[1])
@@ -2914,36 +2975,597 @@ def setgan_fid_phase(dev, card) -> None:
     # (d) One fp32 D and G step at batch 2, D on two new families, kernels vs impl="ref".
     tr = built(dataclasses.replace(opts, backbones=",".join(D_NEW_FAMILIES)), 1740)
     b2 = {k: v[:2] for k, v in sampler.sample_batch().items()}
-    placed = tr._place(b2)
     z2 = torch.randn((2, SETGAN_CANDS[1], tr.decoder_cfg.z_dim),
-                     generator=torch.Generator().manual_seed(1744)).to(dev)
-    draws = tr.draw(2, SETGAN_CANDS[1])
-    runs, launches = {}, {}
-    for impl in ("auto", "ref"):
-        flrelu_cuda.reset_launches()
-        d = tr.d_loss_and_grads(placed, z2, draws, 2.0, force_fp32=True, impl=impl)
-        g = tr.g_loss_and_grads(placed, z2, draws, 2.0, force_fp32=True, impl=impl)
-        torch.cuda.synchronize()
-        launches[impl] = dict(flrelu_cuda.launches)
-        runs[impl] = {"D": (float(d[0]), d[2]), "G": (float(g[0]), g[2])}
-        del d, g
-    atol_rel, floor = MAPPER_LOSS_TOL
-    ok = launches["auto"] == {"filtered_lrelu_fwd": 2 * n_layers,
-                              "filtered_lrelu_bwd": n_layers, **NO_FIR}
-    for group in ("D", "G"):
-        (la, ga), (lr_, gr) = runs["auto"][group], runs["ref"][group]
-        scale = max(float(v.abs().max()) for v in gr.values())
-        worst = max((float((ga[k] - v).abs().max()), k) for k, v in gr.items())
-        ok = ok and abs(la - lr_) <= atol_rel * abs(lr_) + floor and worst[0] <= GRAD_TOL * scale
-        print(f"setgan {group} step with D = {'+'.join(D_NEW_FAMILIES)}, batch 2 fp32, kernels "
-              f"vs impl='ref': loss {la:.8f} vs {lr_:.8f}; {len(gr)} gradients, worst max abs "
-              f"err {worst[0]:.3e} on {worst[1]} (tol {GRAD_TOL:g} of the group's max |grad| "
-              f"{scale:.4g}); launches {launches['auto']}")
-    del tr, runs, placed
+                     generator=torch.Generator().manual_seed(1744))
+    ok = _steps_vs(tr, b2, z2, tr.draw(2, SETGAN_CANDS[1]),
+                   f"setgan with D = {'+'.join(D_NEW_FAMILIES)}, kernels vs impl='ref',",
+                   launches={"filtered_lrelu_fwd": 2 * n_layers, "filtered_lrelu_bwd": n_layers,
+                             **NO_FIR})
+    del tr
     torch.cuda.empty_cache()
     if not ok:
         raise SystemExit("SetGAN's steps with the new families disagree with impl='ref'")
 
+
+
+SUPERRES = dict(stem_res=256, res=512, cbase=16384, cmax=256, syn_layers=7, up_factor=2,
+                head_layers=4)  # train_setgan_superres.sh (RES 512) on train_setgan_stem.sh's stem
+SUPERRES_REFS, SUPERRES_CANDS = (1, 2), (1, 2)
+SUPERRES_CARRIED = 17      # the leaves reinit_stem carries at the recipe's widths
+SUPERRES_STEPS = 3         # timed train() steps after one warm-up step
+PRETRAINED_STEPS = 2
+STEM_STEPS = 1             # timed train_steps of each other stem after one warm-up
+SG2_FFHQ = dict(size=1024, style_dim=512, n_mlp=8, channel_multiplier=2)  # rosinality FFHQ
+SG2_BATCH = 4
+# G's gradients card vs CPU through one cotangent of the images: the two devices'
+# forwards differ by ~1e-5, which flips the lrelu's slope (1 or 0.2) and the clamp
+# on pre-activations near their kinks, so a gradient summed over every pixel (a
+# noise strength) moves by up to 1.2e-3 of the group's largest entry (PERF.md
+# section 6; GRAD_TOL's 1e-3 holds only within one device).
+STEM_GRAD_TOL = 5e-3
+
+
+def _leaf(tree, path: str):
+    for key in path.split("/"):
+        tree = tree[key]
+    return np.asarray(tree)
+
+
+def _flat_tree(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}/{k}" if prefix else str(k)
+        out.update(_flat_tree(v, name) if isinstance(v, dict) else {name: np.asarray(v)})
+    return out
+
+
+def _trees_equal(got, want) -> list:
+    """The leaves of ``want`` that ``got`` lacks or holds other bytes of."""
+    got, want = _flat_tree(got), _flat_tree(want)
+    return [k for k, v in want.items()
+            if k not in got or got[k].shape != v.shape or got[k].tobytes() != v.tobytes()]
+
+
+def sg2_reference_state(G) -> dict:
+    """The ``"sg2"`` stem's state in the reference's `networks_stylegan2`
+    naming (what `convert_sg2_state` reads): ``synthesis.`` before each
+    block, the const CHW, conv weights OIHW."""
+    state = {}
+    for k, v in G.state_dict().items():
+        v = v.detach().cpu().clone()
+        if k.startswith("mapping."):
+            state[k] = v
+        elif k.endswith(".const"):
+            state[f"synthesis.{k}"] = v.permute(2, 0, 1).contiguous()
+        elif k.endswith(".weight") and v.ndim == 4:
+            state[f"synthesis.{k}"] = v.permute(3, 2, 0, 1).contiguous()
+        else:
+            state[f"synthesis.{k}"] = v
+    return state
+
+
+_MBV2_T1 = {"conv_dw": "0.0", "bn2": "0.1", "conv_pwl": "1", "bn3": "2"}
+_MBV2 = {"conv_pw": "0.0", "bn1": "0.1", "conv_dw": "1.0", "bn2": "1.1", "conv_pwl": "2",
+         "bn3": "3"}
+_TORCH_BN = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+
+
+def mobilenet_v2_reference_state(net) -> dict:
+    """The registry's MobileNetV2 in torchvision's naming (``features.N…``)."""
+    state = {}
+    for key, v in net.state_dict().items():
+        path, _, leaf = key.rpartition(".")
+        if path in ("conv_stem", "bn_stem"):
+            module = {"conv_stem": "features.0.0", "bn_stem": "features.0.1"}[path]
+        else:
+            block, layer = path.split(".")
+            i = int(block[len("block"):])
+            module = f"features.{i}.conv.{(_MBV2_T1 if i == 1 else _MBV2)[layer]}"
+        v = v.detach().cpu()
+        state[f"{module}.{'weight' if leaf == 'kernel' else _TORCH_BN[leaf]}"] = (
+            v.permute(3, 2, 0, 1).contiguous() if leaf == "kernel" else v.clone())
+    return state
+
+
+def _card_vs_cpu_steps(card, cpu, batch, z, draws, what):
+    """G's fp32 forward at batch 2 of two trainers with the same weights, on
+    the card and on the CPU: the images within `IMAGE_TOL` of max |ref|; the
+    G step's losses within `MAPPER_LOSS_TOL`, and its gradients through G
+    from one cotangent of the images (the CPU's dL/dimages) within
+    `STEM_GRAD_TOL`. D is the projected discriminator that phases 16 and 17
+    hold; here it only gives the cotangent. Returns False on a miss."""
+    from stylegan3_editing_tpu_torch.setgan.loss import blur_images, g_main_loss
+
+    sides = {}
+    for key, tr in (("card", card), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        placed = tr._place(batch)
+        zz, dd = z.to(tr.device), _to(draws, tr.device)
+        imgs, _ = tr._run_g(tr.G, placed, zz, True)
+        with torch.set_grad_enabled(key == "cpu"):
+            logits = tr.D(placed["reference"], blur_images(imgs if key == "cpu" else
+                                                           imgs.detach(), 2.0),
+                          draws=dd["g"], r_mask=placed["ref_mask"], x_mask=placed["cand_mask"],
+                          ada_p=tr._ada_p())
+            g_loss = g_main_loss(logits)
+        sides[key] = dict(imgs=imgs, g_loss=g_loss, params=list(tr.g_params.values()))
+        print(f"{what} the {key} side's G forward: {time.perf_counter() - t0:.2f} s")
+    c, p = sides["cpu"], sides["card"]
+    grads = torch.autograd.grad(c["g_loss"], [c["imgs"]] + c["params"], allow_unused=True)
+    want = {n: torch.zeros_like(t) if g is None else g
+            for n, t, g in zip(cpu.g_params, c["params"], grads[1:])}
+    card_grads = torch.autograd.grad(p["imgs"], p["params"],
+                                     grad_outputs=grads[0].to(card.device), allow_unused=True)
+    got = {n: torch.zeros_like(t).cpu() if g is None else g.cpu()
+           for n, t, g in zip(card.g_params, p["params"], card_grads)}
+    fake = c["imgs"].detach()
+    img_err = float((p["imgs"].detach().cpu() - fake).abs().max())
+    img_max = float(fake.abs().max())
+    print(f"{what} G's images, batch 2 fp32: max abs err {img_err:.3e} (tol {IMAGE_TOL:g} of "
+          f"max |ref| {img_max:.4g})")
+    ok = img_err <= IMAGE_TOL * img_max
+    ok = _group_check(f"{what} (through G from the CPU's dL/dimages)", "G", got, want,
+                      float(p["g_loss"]), float(c["g_loss"].detach()),
+                      tol=STEM_GRAD_TOL) and ok
+    return ok
+
+
+def _timed_steps(tr, run, n_steps):
+    """Run ``run()`` (steps of ``tr``) with CUDA events around each D step, G
+    step and step; the means over the last ``n_steps`` steps (s)."""
+    events = {}
+
+    def mark(name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        events.setdefault(name, []).append(e)
+
+    d_fn, g_fn, adam_fn, step_fn = (tr.d_loss_and_grads, tr.g_loss_and_grads, tr._adam_step,
+                                    tr.train_step)
+
+    def d_timed(*a, **k):
+        mark("d0")
+        return d_fn(*a, **k)
+
+    def g_timed(*a, **k):
+        mark("g0")
+        return g_fn(*a, **k)
+
+    def adam_timed(opt, params, grads, lr):
+        adam_fn(opt, params, grads, lr)
+        mark("d1" if opt is tr.d_opt else "g1")
+
+    def step_timed(*a, **k):
+        mark("s0")
+        out = step_fn(*a, **k)
+        mark("s1")
+        return out
+
+    tr.d_loss_and_grads, tr.g_loss_and_grads, tr._adam_step, tr.train_step = (
+        d_timed, g_timed, adam_timed, step_timed)
+    try:
+        out = run()
+        torch.cuda.synchronize()
+    finally:
+        del tr.d_loss_and_grads, tr.g_loss_and_grads, tr._adam_step, tr.train_step
+
+    def secs(a, b):
+        pairs = list(zip(events[a], events[b]))[-n_steps:]
+        return sum(x.elapsed_time(y) for x, y in pairs) / 1e3 / len(pairs)
+
+    return out, secs("s0", "s1"), secs("d0", "d1"), secs("g0", "g1")
+
+
+def superres_stems_phase(dev, card, layer_call, kernel_call, bwd_kernel_call, bwd_plain_call):
+    """Phase 18: SetGAN's progressive growth, its pretrained recipe with real
+    files, the other stems, the rosinality StyleGAN2 and the last
+    `convert_checkpoint` kinds. Returns (#1's and #2's largest errors
+    against their plain versions, #1's and #2's launches on this path, the
+    per-layer rows of both kernels on the grown decoder)."""
+    import functools
+    import pickle
+    import shutil
+    import tempfile
+
+    from stylegan3_editing_tpu_torch.models.backbones.registry import make_feature_network
+    from stylegan3_editing_tpu_torch.models.encoders import convert_restyle_encoder_state
+    from stylegan3_editing_tpu_torch.models.sg3 import (Generator, build_synthesis_layout,
+                                                        sg3_t_config, to_jax_variables)
+    from stylegan3_editing_tpu_torch.models.sg3.convert import load_torch_pt, npz_to_variables
+    from stylegan3_editing_tpu_torch.models.stylegan2 import SG2Discriminator, SG2Generator
+    from stylegan3_editing_tpu_torch.ops import flrelu_cuda
+    from stylegan3_editing_tpu_torch.runtime.checkpoint import load_pytree
+    from stylegan3_editing_tpu_torch.scripts import convert_checkpoint, train_setgan
+    from stylegan3_editing_tpu_torch.setgan import (ImageMultiSetGenerator, SetGANLossConfig,
+                                                    SetGANTrainConfig, SetGANTrainer)
+
+    R = SUPERRES
+    tmp = Path(tempfile.mkdtemp())
+    launches_out, rows = {}, {}
+    clock = [time.perf_counter()]
+
+    def _elapsed(what):
+        now = time.perf_counter()
+        print(f"elapsed in phase 18: {what} {now - clock[0]:.1f} s")
+        clock[0] = now
+
+    def seeded(tr, seed, w_avg=True):
+        """Non-trivial batch norms (the encoder's and D's), with ``w_avg``
+        the decoder's from 256 mapped z; G_ema a copy of G."""
+        seeded_batch_norms(tr.G.encoder, seed)
+        seeded_batch_norms(tr.D, seed + 1)
+        with torch.no_grad():
+            if w_avg:
+                z = torch.randn((256, tr.decoder_cfg.z_dim),
+                                generator=torch.Generator().manual_seed(seed + 2))
+                tr.G.decoder.mapping.w_avg.copy_(tr.G.decoder.map(z.to(dev))[:, 0].mean(0))
+                tr.latent_avg = tr.G.decoder.mapping.w_avg.clone()
+            tr.G_ema.load_state_dict(tr.G.state_dict())
+
+    def renders(decoder, n, seed):
+        with torch.no_grad():
+            z = torch.randn((n, decoder.mapping.z_dim if hasattr(decoder, "mapping") else
+                             decoder.cfg.z_dim), generator=torch.Generator().manual_seed(seed))
+            return torch.cat([decoder(z[i:i + 6].to(dev)).float().cpu()
+                              for i in range(0, n, 6)]).numpy()
+
+    common = dict(batch=SETGAN_BATCH, cbase=R["cbase"], cmax=R["cmax"], syn_layers=R["syn_layers"],
+                  d_latent=SETGAN_D_LATENT, g_attn_layers=2, d_attn_layers=2, restyle_iters=1,
+                  data_augmentation=True, fid=False, snapshot_ticks=10 ** 6)
+    try:
+        # (a) The stem: one train() step at train_setgan_stem.sh's recipe, snapshotted.
+        t0 = time.perf_counter()
+        stem = train_setgan.build_trainer(train_setgan.SetGANCliOptions(
+            outdir=str(tmp / "stem"), resolution=R["stem_res"], reference_min=SETGAN_REFS[0],
+            reference_max=SETGAN_REFS[1], candidate_min=SETGAN_CANDS[0],
+            candidate_max=SETGAN_CANDS[1], restyle_mode="none", no_mean_center=True,
+            d_remat_features=True, g_remat_encoder=True, encoder_res=R["stem_res"],
+            tick_kimg=SETGAN_BATCH / 1000, total_kimg=SETGAN_BATCH / 1000, **common))
+        stem.run_dir = None
+        seeded(stem, 1800)
+        pool = renders(stem.G.decoder, 18, 1803)
+        stem.train(iter(ImageMultiSetGenerator(RenderedClasses(pool, 3), SETGAN_BATCH,
+                                               reference_range=SETGAN_REFS,
+                                               candidate_range=SETGAN_CANDS,
+                                               data_augmentation=True, seed=0)))
+        t1 = time.perf_counter()
+        stem.snapshot(tmp / "stem_snapshot")
+        snap_s = time.perf_counter() - t1
+        snap_gb = sum(f.stat().st_size for f in (tmp / "stem_snapshot").rglob("*")) / 2 ** 30
+        print(f"superres stem: train_setgan_stem.sh's recipe at {R['stem_res']}^2, "
+              f"{stem.d_steps} step through train(), snapshot {snap_gb:.3f} GiB written in "
+              f"{snap_s:.2f} s; {time.perf_counter() - t0:.2f} s in all")
+        del stem, pool
+        torch.cuda.empty_cache()
+
+        _elapsed("stem snapshot")
+        # (a) The superres run: train_setgan's build_trainer and train at the recipe.
+        t0 = time.perf_counter()
+        sr_opts = train_setgan.SetGANCliOptions(
+            outdir=str(tmp / "superres"), resolution=R["res"], superres=True,
+            up_factor=R["up_factor"], head_layers=R["head_layers"],
+            path_stem=str(tmp / "stem_snapshot"), reference_min=SUPERRES_REFS[0],
+            reference_max=SUPERRES_REFS[1], candidate_min=SUPERRES_CANDS[0],
+            candidate_max=SUPERRES_CANDS[1], restyle_mode="none", encoder_res=R["stem_res"],
+            tick_kimg=(SUPERRES_STEPS + 1) * SETGAN_BATCH / 1000,
+            total_kimg=(SUPERRES_STEPS + 1) * SETGAN_BATCH / 1000, **common)
+        tr = train_setgan.build_trainer(sr_opts)
+        tr.run_dir = None
+        seeded(tr, 1810, w_avg=False)  # w_avg is the stem's, carried
+        build_s = time.perf_counter() - t0
+        layers = [s for s in build_synthesis_layout(tr.decoder_cfg).layers
+                  if s.up_filter is not None]
+        n_layers, heads = len(layers), tr.cfg.head_layer_names
+        stem_tree, _ = load_pytree(tmp / "stem_snapshot")
+        stem_dec = {c: stem_tree["g_vars"][c]["decoder"] for c in ("params", "buffers", "ema")}
+        del stem_tree
+
+        def carried_moved():
+            now = to_jax_variables(tr.G.decoder)
+            return [p for p in tr.carried["decoder"]
+                    if _leaf(now, p).tobytes() != _leaf(stem_dec, p).tobytes()]
+
+        carried = tr.carried["decoder"]
+        frozen = {n: p.detach().clone() for n, p in tr.G.named_parameters()
+                  if n not in tr.g_params}
+        frozen.update({f"D.{n}": p.detach().clone() for n, p in tr.D.named_parameters()
+                       if n not in tr.d_params})
+        print(f"superres: {R['stem_res']}^2 stem grown to {R['res']}^2 (x{R['up_factor']}, "
+              f"{R['head_layers']} head layers): {n_layers} filtered layers "
+              f"{[s.name for s in layers]}, heads {list(heads)}; reinit_stem carried "
+              f"{len(carried)} leaves; {sum(p.numel() for p in tr.g_params.values())} G "
+              f"parameters train, {len(frozen)} tensors frozen; D {'+'.join(tr.D.backbones)}; "
+              f"built in {build_s:.2f} s")
+        moved = carried_moved()
+        if len(carried) != SUPERRES_CARRIED or moved:
+            raise SystemExit(f"superres: reinit_stem carried {len(carried)} leaves "
+                             f"({SUPERRES_CARRIED} at the recipe), {moved[:3]} not the snapshot's")
+        pool = renders(tr.G.decoder, 18, 1813)
+        sampler = ImageMultiSetGenerator(RenderedClasses(pool, 3), SETGAN_BATCH,
+                                         reference_range=SUPERRES_REFS,
+                                         candidate_range=SUPERRES_CANDS, data_augmentation=True,
+                                         seed=0)
+        batches = [sampler.sample_batch() for _ in range(SUPERRES_STEPS + 2)]
+        flrelu_cuda.reset_launches()
+        with torch.no_grad():
+            tr.generate(batches[0]["reference"][:2], 2)
+        torch.cuda.synchronize()
+        g_fwd = flrelu_cuda.launches["filtered_lrelu_fwd"]
+        torch.cuda.reset_peak_memory_stats()
+        flrelu_cuda.reset_launches()
+        n_valid = sum(int(b["cand_mask"].sum()) for b in batches[1:SUPERRES_STEPS + 1])
+        _, step_s, d_s, g_s = _timed_steps(
+            tr, lambda: tr.train(iter(batches[:SUPERRES_STEPS + 1])), SUPERRES_STEPS)
+        steps = tr.d_steps
+        step_launches = {k: v / steps for k, v in flrelu_cuda.launches.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"superres G forward (generate): #1 {g_fwd} launches; train(): {steps} steps, "
+              f"launches a step {step_launches}")
+        print(f"superres train_step time: {step_s:.4f} s a step (D step {d_s:.4f} s, G step "
+              f"{g_s:.4f} s, G_ema and the rest {step_s - d_s - g_s:.4f} s) over the last "
+              f"{SUPERRES_STEPS} of {steps} steps, {n_valid / (step_s * SUPERRES_STEPS):.4f} "
+              f"trained candidate images/s ({n_valid} valid of "
+              f"{SUPERRES_STEPS * SETGAN_BATCH * SUPERRES_CANDS[1]} slots), peak memory "
+              f"{peak:.3f} GiB at batch {SETGAN_BATCH} {card}")
+        launches_out["superres G forward"] = g_fwd
+        launches_out["superres train_step"] = step_launches
+        # The G step's backward crosses every filtered layer: the style attention and
+        # the encoder train, and each layer's affine takes a w from them.
+        if g_fwd != n_layers or step_launches != {
+                "filtered_lrelu_fwd": 2 * n_layers, "filtered_lrelu_bwd": n_layers, **NO_FIR}:
+            raise SystemExit(f"superres: expected {n_layers} launches a G forward and "
+                             f"{2 * n_layers} + {n_layers} a train_step")
+        if peak >= 80:
+            raise SystemExit(f"superres at batch {SETGAN_BATCH}: peak {peak:.3f} GiB, over 80 GB")
+        t = device_trace(lambda: tr.train_step(batches[-1]), ranges=[
+            ("Dmain", None, None), ("Gmain", None, None), ("backward", None, None),
+            ("encoder", tr.G.encoder, "forward"), ("decoder", tr.G.decoder, "synthesize"),
+            *[(f"{bb} trunk", getattr(tr.D, f"proj_{bb}").backbone, "forward")
+              for bb in tr.D.backbones]])
+        print_trace("superres train_step", t, card)
+        moved = [n for n, p in frozen.items() if not torch.equal(_bits(p), _bits(
+            (dict(tr.D.named_parameters())[n[2:]] if n.startswith("D.")
+             else dict(tr.G.named_parameters())[n])))]
+        moved_carried = carried_moved()
+        print(f"superres after {tr.d_steps} steps: {len(frozen)} frozen tensors, {len(moved)} "
+              f"changed; carried leaves still the snapshot's: {not moved_carried}")
+        if moved or moved_carried:
+            raise SystemExit(f"superres: frozen tensors moved: {(moved + moved_carried)[:3]}")
+
+        # Kernels against impl="ref": one D and one G step at batch 2 in fp32.
+        b2 = {k: v[:2] for k, v in batches[0].items()}
+        z2 = torch.randn((2, SUPERRES_CANDS[1], tr.decoder_cfg.z_dim),
+                         generator=torch.Generator().manual_seed(1814))
+        if not _steps_vs(tr, b2, z2, tr.draw(2, SUPERRES_CANDS[1]),
+                         "superres, kernels vs impl='ref',"):
+            raise SystemExit("superres: the steps through the kernels disagree with impl='ref'")
+        del tr, frozen, pool, sampler
+        torch.cuda.empty_cache()
+
+        _elapsed("superres steps and their gates")
+        # #1 and #2 alone on each layer of the grown decoder at batch 32 (B·C).
+        batch = SETGAN_BATCH * SUPERRES_CANDS[1]
+        what = f"SetGAN superres {R['res']}"
+        ms, bound, fwd_err, plain = layer_rows(dev, card, layers, layer_call, kernel_call, batch,
+                                               False, 1820, what, plain_chunk=PLAIN_CHUNK)
+        rows["fwd"] = dict(ms=ms, bound_ms=bound, plain_ms=plain, batch=batch)
+        b_ms, b_bound, b_plain, bwd_err = _bwd_rows(dev, card, layers, bwd_kernel_call,
+                                                    bwd_plain_call, batch, 1840, what)
+        rows["bwd"] = dict(ms=b_ms, bound_ms=b_bound, plain_ms=b_plain, batch=batch)
+
+        _elapsed("#1 and #2 on the grown layers")
+        # (b) The pretrained recipe with reference-format files.
+        t0 = time.perf_counter()
+        cfg256 = sg3_t_config(R["stem_res"], channel_base=R["cbase"], channel_max=R["cmax"],
+                              num_layers=R["syn_layers"])
+        G = Generator(cfg256, device=dev, generator=torch.Generator().manual_seed(1850))
+        with torch.no_grad():
+            z = torch.randn((256, cfg256.z_dim), generator=torch.Generator().manual_seed(1851))
+            G.mapping.w_avg.copy_(G.map(z.to(dev))[:, 0].mean(0))
+        torch.save(reference_state(G), tmp / "sg3t256.pt")
+        enc_state = irse_reference_state(cfg256.num_ws, 1852)
+        torch.save({"state_dict": {f"encoder.{k}": v for k, v in enc_state.items()},
+                    "opts": {"encoder_type": "ProgressiveBackboneEncoder"}},
+                   tmp / "restyle_e4e.pt")
+        pool = renders(G, 21, 1853)
+        del G
+        tr = train_setgan.build_trainer(train_setgan.SetGANCliOptions(
+            outdir=str(tmp / "pretrained"), resolution=R["stem_res"],
+            encoder_type="ProgressiveBackboneEncoder", reference_min=SETGAN_REFS[0],
+            reference_max=SETGAN_REFS[1], candidate_min=SETGAN_CANDS[0],
+            candidate_max=SETGAN_CANDS[1], restyle_mode="encoder", freeze_encoder=True,
+            freeze_decoder=True, use_set_decoder=True, encoder_path=str(tmp / "restyle_e4e.pt"),
+            generator_path=str(tmp / "sg3t256.pt"),
+            tick_kimg=PRETRAINED_STEPS * SETGAN_BATCH / 1000,
+            total_kimg=PRETRAINED_STEPS * SETGAN_BATCH / 1000, **common))
+        tr.run_dir = None
+        seeded_batch_norms(tr.D, 1854)
+        load_s = time.perf_counter() - t0
+        want_enc = convert_restyle_encoder_state(enc_state)[0]
+        want_dec = load_torch_pt(tmp / "sg3t256.pt", cfg256)[0]
+
+        def pretrained_misses():
+            return (_trees_equal(to_jax_variables(tr.G.encoder), want_enc)
+                    + _trees_equal(to_jax_variables(tr.G.decoder), want_dec))
+
+        miss = pretrained_misses()
+        print(f"pretrained recipe: --encoder_path (IR-SE-50 e4e, {cfg256.num_ws} styles, 6 input "
+              f"channels, reference-format .pt) and --generator_path (SG3-T {R['stem_res']} "
+              f".pt) loaded in {load_s:.2f} s; {len(tr.carried['encoder'])} encoder leaves "
+              f"carried; the merged encoder and decoder equal the converted files: {not miss}")
+        if miss:
+            raise SystemExit(f"pretrained recipe: the merged weights differ from the files': "
+                             f"{miss[:3]}")
+        sampler = ImageMultiSetGenerator(RenderedClasses(pool, 3), SETGAN_BATCH,
+                                         reference_range=SETGAN_REFS,
+                                         candidate_range=SETGAN_CANDS, data_augmentation=True,
+                                         seed=0)
+        flrelu_cuda.reset_launches()
+        _, step_s, d_s, g_s = _timed_steps(tr, lambda: tr.train(iter(sampler)), 1)
+        launches_out["pretrained train_step"] = {
+            k: v / tr.d_steps for k, v in flrelu_cuda.launches.items()}
+        miss = pretrained_misses()
+        print(f"pretrained recipe: {tr.d_steps} steps through train(), the last {step_s:.4f} s "
+              f"(D step {d_s:.4f} s, G step {g_s:.4f} s); launches a step "
+              f"{launches_out['pretrained train_step']}; encoder and decoder byte for byte after "
+              f"the steps: {not miss} {card}")
+        if miss or tr.d_steps != PRETRAINED_STEPS:
+            raise SystemExit(f"pretrained recipe: the frozen encoder or decoder moved: {miss[:3]}")
+        del tr, pool, sampler
+        torch.cuda.empty_cache()
+
+        _elapsed("the pretrained recipe")
+        # (c) The sg2 and fastgan stems at train_setgan_stem.sh's recipe.
+        cfg_t = sg3_t_config(R["stem_res"], channel_base=R["cbase"], channel_max=R["cmax"],
+                             num_layers=R["syn_layers"])
+
+        def recipe(**kw):
+            base = dict(batch_size=SETGAN_BATCH, d_latent_size=SETGAN_D_LATENT, g_attn_layers=2,
+                        d_attn_layers=2, restyle_mode="none", restyle_iters=1, mean_center=False,
+                        d_remat_features=True, g_remat_encoder=True,
+                        ref_resolution=R["stem_res"],
+                        loss=SetGANLossConfig(blur_init_sigma=2.0, blur_fade_kimg=300.0))
+            return SetGANTrainConfig(**{**base, **kw})
+
+        for stem_name in ("sg2", "fastgan"):
+            t0 = time.perf_counter()
+            tr = SetGANTrainer(recipe(stem=stem_name), cfg_t, device=dev)
+            seeded(tr, 1860, w_avg=False)
+            pool = renders(tr.G.decoder, 18, 1861)
+            sampler = ImageMultiSetGenerator(RenderedClasses(pool, 3), SETGAN_BATCH,
+                                             reference_range=SETGAN_REFS,
+                                             candidate_range=SETGAN_CANDS,
+                                             data_augmentation=True, seed=0)
+            batches = [sampler.sample_batch() for _ in range(STEM_STEPS + 2)]
+            torch.cuda.reset_peak_memory_stats()
+            flrelu_cuda.reset_launches()
+
+            def run():
+                for b in batches[:STEM_STEPS + 1]:
+                    metrics = tr.train_step(b)
+                return metrics
+
+            metrics, step_s, d_s, g_s = _timed_steps(tr, run, STEM_STEPS)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            launches = dict(flrelu_cuda.launches)
+            values = {k: float(v) for k, v in metrics.items()}
+            n_dec = sum(p.numel() for p in tr.G.decoder.parameters())
+            print(f"stem {stem_name}: train_setgan_stem.sh's recipe at {R['stem_res']}^2, "
+                  f"decoder {n_dec} parameters, {tr.G.n_styles} W entries; {step_s:.4f} s a step "
+                  f"(D {d_s:.4f} s, G {g_s:.4f} s) over {STEM_STEPS} steps after a warm-up, peak "
+                  f"{peak:.3f} GiB; launches {launches}; built in "
+                  f"{time.perf_counter() - t0:.2f} s {card}")
+            if launches != {**FLRELU, **NO_FIR} or not all(
+                    math.isfinite(v) for v in values.values()) or peak >= 80:
+                raise SystemExit(f"stem {stem_name}: a hand kernel launched, a non-finite metric "
+                                 f"or over 80 GB: {launches}, {values}")
+            t = device_trace(lambda: tr.train_step(batches[-1]), ranges=[
+                ("decoder", tr.G.decoder, "synthesize"), ("encoder", tr.G.encoder, "forward")])
+            print_trace(f"stem {stem_name} train_step", t, card)
+            # 2 sets of 2 references and 1 candidate, to keep the CPU's side short.
+            b2 = {k: v[:2, :2] if k.startswith("ref") else
+                  v[:2, :1] if k.startswith("cand") else v[:2] for k, v in batches[0].items()}
+            b2["ref_mask"], b2["cand_mask"] = np.ones_like(b2["ref_mask"]), np.ones_like(
+                b2["cand_mask"])
+            del tr, pool, sampler, batches
+            torch.cuda.empty_cache()
+            # Card against CPU: the same seeded trainers, noise and draws; D on
+            # EfficientNet-lite0 alone and the 8-layer IR-SE trunk, frozen, to keep
+            # the CPU's side short (the stem is what this holds).
+            small = recipe(stem=stem_name, d_backbones=("tf_efficientnet_lite0",),
+                           encoder_num_layers=8, freeze_encoder=True, d_remat_features=False,
+                           g_remat_encoder=False)
+            pair = {}
+            for device in (dev, "cpu"):
+                pair[str(device)] = SetGANTrainer(small, cfg_t, device=device)
+                seeded(pair[str(device)], 1870, w_avg=False)
+            noise = pair["cpu"].G.decoder.draw_noise(
+                2, torch.device("cpu"), torch.Generator().manual_seed(1871))
+            for key, tr in pair.items():
+                tr.G.decoder.synthesize = functools.partial(
+                    tr.G.decoder.synthesize, noise=_to(noise, tr.device))
+            z2 = torch.randn((2, 1, cfg_t.z_dim), generator=torch.Generator().manual_seed(1872))
+            draws = _to(pair[str(dev)].draw(2, 1), torch.device("cpu"))
+            t1 = time.perf_counter()
+            ok = _card_vs_cpu_steps(pair[str(dev)], pair["cpu"], b2, z2, draws,
+                                    f"stem {stem_name}, card vs CPU,")
+            print(f"stem {stem_name}: card vs CPU steps in {time.perf_counter() - t1:.2f} s")
+            del pair
+            torch.cuda.empty_cache()
+            if not ok:
+                raise SystemExit(f"stem {stem_name}: the card's step disagrees with the CPU's")
+            _elapsed(f"the {stem_name} stem")
+
+        # (d) The rosinality StyleGAN2 zoo row at the FFHQ 1024 widths.
+        t0 = time.perf_counter()
+        nets = {}
+        for device in (dev, "cpu"):
+            nets[str(device)] = (
+                SG2Generator(**SG2_FFHQ, device=device,
+                             generator=torch.Generator().manual_seed(1880)),
+                SG2Discriminator(SG2_FFHQ["size"], SG2_FFHQ["channel_multiplier"],
+                                 device=device, generator=torch.Generator().manual_seed(1881)))
+        g_cpu = nets["cpu"][0]
+        with torch.no_grad():
+            for n, p in list(nets["cpu"][0].named_parameters()) + list(
+                    nets[str(dev)][0].named_parameters()):
+                if n.endswith("noise.weight"):
+                    p.fill_(0.1)
+        gen = torch.Generator().manual_seed(1882)
+        z = torch.randn((SG2_BATCH, SG2_FFHQ["style_dim"]), generator=gen)
+        noise = [torch.randn((SG2_BATCH, r, r, 1), generator=gen)
+                 for r in [4] + [2 ** (i // 2 + 3) for i in range(2 * (g_cpu.log_size - 2))]]
+        with torch.no_grad():
+            img_cpu = g_cpu(z, noise=noise)
+            logits_cpu = nets["cpu"][1](img_cpu)
+            g_dev, d_dev = nets[str(dev)]
+            zd, nd, imgd = z.to(dev), [n.to(dev) for n in noise], img_cpu.to(dev)
+            img_dev, logits_dev = g_dev(zd, noise=nd), d_dev(imgd)
+            g_ms = time_ms(lambda: g_dev(zd, noise=nd), 3, warmup=1)
+            d_ms = time_ms(lambda: d_dev(imgd), 3, warmup=1)
+        errs = [float((a.cpu() - b).abs().max()) / float(b.abs().max())
+                for a, b in ((img_dev, img_cpu), (logits_dev, logits_cpu))]
+        print(f"rosinality SG2 at the FFHQ widths ({SG2_FFHQ}), batch {SG2_BATCH}, fixed noise: "
+              f"generator card vs CPU {errs[0]:.3e} of max |ref|, discriminator {errs[1]:.3e} "
+              f"(tol {EVAL_TOL:g}); {g_ms / SG2_BATCH:.4f} ms an image through G, "
+              f"{d_ms / SG2_BATCH:.4f} ms through D; {time.perf_counter() - t0:.2f} s {card}")
+        del nets, g_cpu, g_dev, d_dev, img_dev, imgd
+        torch.cuda.empty_cache()
+        if max(errs) > EVAL_TOL:
+            raise SystemExit("the rosinality SG2 on the card disagrees with the CPU")
+
+        _elapsed("the rosinality StyleGAN2")
+        # (e) convert_checkpoint's last three kinds on reference-format files.
+        from stylegan3_editing_tpu_torch.models.sg2_stem import SG2Config, SG2Generator as Stem
+
+        stem = Stem(SG2Config(img_resolution=R["stem_res"], channel_base=R["cbase"],
+                              channel_max=R["cmax"]), device="cpu",
+                    generator=torch.Generator().manual_seed(1890))
+        net, _ = make_feature_network("mobilenet_v2", generator=torch.Generator().manual_seed(1891))
+        seeded_batch_norms(net, 1892)
+        emb = torch.nn.Embedding(1000, 320)  # the shape of in_embeddings/tf_efficientnet_lite0.pkl
+        torch.save(sg2_reference_state(stem), tmp / "sg2.pt")
+        torch.save(mobilenet_v2_reference_state(net), tmp / "mobilenet_v2.pt")
+        with open(tmp / "embed.pkl", "wb") as f:
+            pickle.dump({"embed": emb}, f)
+        for kind, src, kw, want in (
+                ("sg2_stem", "sg2.pt", dict(res=R["stem_res"], cfg_overrides=dict(
+                    channel_base=R["cbase"], channel_max=R["cmax"])), to_jax_variables(stem)),
+                ("backbone", "mobilenet_v2.pt", dict(name="mobilenet_v2"), to_jax_variables(net)),
+                ("class_embedding", "embed.pkl", {},
+                 {"class_embedding": emb.weight.detach().numpy()})):
+            t1 = time.perf_counter()
+            convert_checkpoint.convert(str(tmp / src), str(tmp / kind), kind=kind, **kw)
+            got = npz_to_variables(tmp / f"{kind}.npz")
+            miss = _trees_equal(got, want) + _trees_equal(want, got)
+            print(f"convert_checkpoint --kind {kind}: {len(_flat_tree(want))} leaves, equal to the "
+                  f"source: {not miss}; {time.perf_counter() - t1:.2f} s")
+            if miss:
+                raise SystemExit(f"convert_checkpoint --kind {kind}: {miss[:3]} differ")
+        _elapsed("the conversions")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return fwd_err, bwd_err, launches_out, rows
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3490,6 +4112,20 @@ def main() -> int:
     now = time.perf_counter()
     print(f"elapsed: phase 17 {now - t17:.1f} s, the script {now - t_start:.1f} s")
 
+    # 18. Progressive growth, the pretrained recipe, the other stems, the rosinality
+    # StyleGAN2 and the last convert_checkpoint kinds.
+    t18 = time.perf_counter()
+    fwd18, bwd18, path18, rows18 = superres_stems_phase(dev, card, layer_call, kernel_call,
+                                                        bwd_kernel_call, bwd_plain_call)
+    max_err, bwd_max_err = max(max_err, fwd18), max(bwd_max_err, bwd18)
+    torch.cuda.empty_cache()
+    now = time.perf_counter()
+    print(f"superres rows (batch {rows18['fwd']['batch']}, the grown decoder's 11 layers): "
+          f"#1 {rows18['fwd']['ms']:.4f} ms (bound {rows18['fwd']['bound_ms']:.4f}, plain "
+          f"{rows18['fwd']['plain_ms']:.4f}); #2 {rows18['bwd']['ms']:.4f} ms (bound "
+          f"{rows18['bwd']['bound_ms']:.4f}, plain {rows18['bwd']['plain_ms']:.4f}) {card}")
+    print(f"elapsed: phase 18 {now - t18:.1f} s, the script {now - t_start:.1f} s")
+
     def fir_entry(name, replaces):
         row = fir_rows[name, FIR_SHAPES[1], torch.bfloat16]
         return {"name": name, "route": "cuda",
@@ -3508,6 +4144,9 @@ def main() -> int:
         "bound_ms": tot["bound_ms"],
         "bound_by": "operations" if tot["ops_ms"] > tot["bytes_ms"] else "bytes",
         "library_ms": None,
+        "path_launches": {"phase 18 superres G forward": path18["superres G forward"],
+                          "phase 18 superres train_step": path18["superres train_step"][
+                              "filtered_lrelu_fwd"]},
     }, {
         "name": "filtered_lrelu_bwd",
         "route": "cuda",
@@ -3521,6 +4160,8 @@ def main() -> int:
         "bound_ms": btot["bound_ms"],
         "bound_by": "operations" if btot["ops_ms"] > btot["bytes_ms"] else "bytes",
         "library_ms": None,
+        "path_launches": {"phase 18 superres train_step": path18["superres train_step"][
+            "filtered_lrelu_bwd"]},
     }, fir_entry("fir_taps", "scripts/exp_mxu_down.py:56"),
         fir_entry("fir_banded", "scripts/exp_mxu_down.py:47")]}))
     print(json.dumps({"ok": True, "device": {

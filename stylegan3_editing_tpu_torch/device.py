@@ -4,8 +4,9 @@ Entry points run on the CUDA card unless the caller asks for the CPU. With
 no card and no explicit ``device="cpu"`` they raise: nothing carries on
 quietly on the CPU. A tensor's device also decides between a hand-written
 kernel and its plain version (`kernel_or_plain`). Every convolution of the
-port goes through `conv2d`, which keeps cuDNN in full fp32, forward and
-backward; `fp32_matmul` does the same for the matmuls of a block.
+port goes through `conv2d` or `conv_transpose2d`, which keep cuDNN in full
+fp32, forward and backward; `fp32_matmul` does the same for the matmuls of
+a block.
 """
 
 from __future__ import annotations
@@ -72,6 +73,41 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] =
     """
     return _Conv2d.apply(x, weight, bias, _pair(stride), _pair(padding), _pair(dilation),
                          int(groups))
+
+
+class _ConvTranspose2d(torch.autograd.Function):
+    """`F.conv_transpose2d` whose forward and backward both run under
+    `_fp32_cudnn`, as `_Conv2d`."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride, padding, output_padding, groups):
+        ctx.save_for_backward(x, weight)
+        ctx.conf = (stride, padding, output_padding, groups, bias is not None)
+        with _fp32_cudnn():
+            return F.conv_transpose2d(x, weight, bias, stride, padding, output_padding, groups)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        stride, padding, output_padding, groups, has_bias = ctx.conf
+        want = ctx.needs_input_grad
+        with _fp32_cudnn():
+            dx, dw, db = torch.ops.aten.convolution_backward(
+                dy, x, weight, [weight.shape[1] * groups] if has_bias else None, stride,
+                padding, [1, 1], True, output_padding, groups,
+                [want[0], want[1], has_bias and want[2]])
+        return dx, dw, db, None, None, None, None
+
+
+def conv_transpose2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                     stride: IntPair = 1, padding: IntPair = 0, output_padding: IntPair = 0,
+                     groups: int = 1) -> torch.Tensor:
+    """`F.conv_transpose2d` (weight ``[in, out // groups, kh, kw]``) with
+    cuDNN held to full fp32 for the call and for its gradients, as
+    `conv2d`. The gradient is not differentiable again."""
+    return _ConvTranspose2d.apply(x, weight, bias, _pair(stride), _pair(padding),
+                                  _pair(output_padding), int(groups))
 
 
 @contextmanager

@@ -11,7 +11,14 @@ torch only, so a reference checkpoint converts on a machine without JAX:
   ReStyle encoder checkpoints (``--kind encoder``: released
       ``restyle_{psp,e4e}`` weights or the ``encoder.*`` keys of a
       full-model checkpoint), the trunk (IR, IR-SE or ResNet-34), its depth
-      and the style count read off the keys.
+      and the style count read off the keys;
+  NVIDIA-convention StyleGAN2 stems (``--kind sg2_stem``, for SetGAN's
+      ``"sg2"`` stem; `models/sg2_stem.convert_sg2_state`), the config
+      from ``--res/--cfg``;
+  timm/torchvision feature backbones (``--kind backbone --name NAME``, a
+      registry name; `models/backbones/registry.convert_feature_network_state`);
+  ImageNet class embeddings (``--kind class_embedding``, the reference's
+      ``in_embeddings/*.pkl``; `models/sg3/superres.load_class_embedding`).
 
 It writes what the JAX CLI writes: ``<dst>.npz`` (read by
 `models.sg3.convert.npz_to_variables` in either package) and ``<dst>.json``.
@@ -21,8 +28,7 @@ in the numpy format (`runtime.checkpoint`) that `load_encoder` reads: the
 encoder, the decoder when the file holds ``decoder.*`` keys (else pass
 ``generator_variables`` to `load_encoder`), and the options. The encoder
 type is the checkpoint's ``opts.encoder_type``, else the e4e type of its
-trunk. The kinds ``sg2_stem``, ``backbone`` and
-``class_embedding`` are not ported yet and raise.
+trunk.
 
     python -m stylegan3_editing_tpu_torch.scripts.convert_checkpoint \\
         --src stylegan3-r-ffhq-1024x1024.pkl --dst sg3r_ffhq
@@ -47,10 +53,7 @@ _CFG_KEYS = ("z_dim", "c_dim", "w_dim", "img_channels", "channel_base",
              "filter_size", "use_radial_filters", "output_scale",
              "margin_size", "first_cutoff", "first_stopband",
              "last_stopband_rel", "magnitude_ema_beta")
-# The kinds that wait for their modules (ROADMAP Queue 1).
-_NOT_PORTED = {"sg2_stem": "the SG2 stem of SetGAN (ROADMAP Queue 1 #9)",
-               "backbone": "the feature backbones' registry (ROADMAP Queue 1 #9)",
-               "class_embedding": "SetGAN's class embeddings (ROADMAP Queue 1 #9)"}
+KINDS = ("sg3", "encoder", "sg2_stem", "backbone", "class_embedding")
 
 
 def _detect_kind(src: str, state=None) -> str:
@@ -115,16 +118,15 @@ def _encoder_checkpoint(dst: str, ckpt: dict, state: dict, enc_state: dict, vari
 
 
 def convert(src: str, dst: str, kind: str = "auto", preset: str = "sg3-r",
-            res: int = 1024, entry: str = "G_ema",
+            res: int = 1024, name: str = "", entry: str = "G_ema",
             cfg_overrides: Optional[dict] = None, strict: bool = True) -> dict:
-    """Convert ``src`` and write ``<dst>.npz`` and ``<dst>.json``; returns the metadata."""
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(f"--kind {kind} needs {_NOT_PORTED[kind]}, not ported yet")
+    """Convert ``src`` and write ``<dst>.npz`` and ``<dst>.json``; returns the
+    metadata. ``name``: the registry name of a ``backbone``."""
     overrides = dict(cfg_overrides or {})
     meta: dict = {"src": src, "kind": kind}
 
     ckpt, state = {}, None
-    if src.endswith((".pt", ".pth")):
+    if src.endswith((".pt", ".pth")) and kind != "class_embedding":
         import torch
 
         ckpt = torch.load(src, map_location="cpu", weights_only=True)
@@ -133,9 +135,6 @@ def convert(src: str, dst: str, kind: str = "auto", preset: str = "sg3-r",
     if kind == "auto":
         kind = _detect_kind(src, state)
         meta["kind"] = kind
-        if kind in _NOT_PORTED:
-            raise NotImplementedError(f"{src} is a {kind} checkpoint, which needs "
-                                      f"{_NOT_PORTED[kind]}, not ported yet")
 
     if kind == "sg3" and src.endswith(".pkl"):
         state, init_kwargs = pkl_generator_state(src, entry)
@@ -160,6 +159,25 @@ def convert(src: str, dst: str, kind: str = "auto", preset: str = "sg3-r",
         meta["encoder"] = info
         meta["checkpoint"] = _encoder_checkpoint(dst, ckpt, state, enc_state, variables, info,
                                                  preset, res, overrides)
+    elif kind == "sg2_stem":
+        from ..models.sg2_stem import SG2Config, convert_sg2_state
+
+        cfg = SG2Config(img_resolution=res, use_bf16=False, **overrides)
+        variables = convert_sg2_state(state, cfg)
+        meta["decoder_cfg"] = dataclasses.asdict(cfg)
+    elif kind == "backbone":
+        from ..models.backbones.registry import convert_feature_network_state
+
+        if not name:
+            raise SystemExit("--kind backbone needs --name <registry name>")
+        variables = convert_feature_network_state(name, state)
+        meta["backbone"] = name
+    elif kind == "class_embedding":
+        from ..models.sg3.superres import load_class_embedding
+
+        emb = load_class_embedding(src)
+        variables = {"class_embedding": emb}
+        meta["shape"] = list(emb.shape)
     else:
         raise SystemExit(f"unknown kind {kind!r}")
 
@@ -176,14 +194,16 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--src", required=True)
     p.add_argument("--dst", required=True)
-    p.add_argument("--kind", default="auto", choices=["auto", "sg3", "encoder", *_NOT_PORTED])
+    p.add_argument("--kind", default="auto", choices=["auto", *KINDS])
     p.add_argument("--preset", default="sg3-r", choices=["sg3-r", "sg3-t"])
     p.add_argument("--res", type=int, default=1024)
+    p.add_argument("--name", default="", help="backbone registry name")
     p.add_argument("--entry", default="G_ema", help="pickle entry to convert")
     p.add_argument("--cfg", default="", help="JSON config overrides")
     p.add_argument("--no-strict", action="store_true")
     a = p.parse_args(argv)
-    return convert(a.src, a.dst, kind=a.kind, preset=a.preset, res=a.res, entry=a.entry,
+    return convert(a.src, a.dst, kind=a.kind, preset=a.preset, res=a.res, name=a.name,
+                   entry=a.entry,
                    cfg_overrides=json.loads(a.cfg) if a.cfg else None,
                    strict=not a.no_strict)
 

@@ -16,12 +16,17 @@ process.
 `convert_inception` gives it), else a seeded init, whose FIDs cannot be
 compared with published ones.
 
-Not ported yet, and refused before any work with the slice that brings
-them: ``--superres``, ``--path_stem`` and ``--encoder_path``
-(`models/sg3/superres.reinit_stem`, slice 18), ``--devices`` above 1 (the
-multi-card runtime, Queue 1 #10).
-``--generator_path`` takes an ``.npz`` written by `convert_checkpoint`;
-convert a reference ``.pt`` or ``.pkl`` to one first.
+The recipes' other phases: ``--superres true --path_stem SNAPSHOT`` grows
+the decoder of a stem run's snapshot by ``--up_factor`` with
+``--head_layers`` new layers (`models/sg3/superres.superres_config`; the
+stem's config from the snapshot's ``decoder_cfg``, else the CLI recipe at
+``--resolution / --up_factor``), carries the stem's weights where name and
+shape match (`reinit_stem`) and trains the head layers only.
+``--encoder_path`` loads a pretrained ReStyle encoder (a reference
+``.pt``/``.pth``, or a coach checkpoint) the same way, and
+``--generator_path`` a decoder (an ``.npz`` from `convert_checkpoint`, or
+a reference ``.pt`` state dict). Refused before any work: ``--devices``
+above 1 (the multi-card runtime, Queue 1 #10) and ``--pl_weight > 0``.
 """
 
 from __future__ import annotations
@@ -33,8 +38,10 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 
 from ..device import resolve_device
-from ..models.sg3 import sg3_t_config
-from ..models.sg3.convert import npz_to_variables
+from ..models.sg3 import SG3Config, sg3_t_config
+from ..models.sg3.convert import load_torch_pt, npz_to_variables
+from ..models.sg3.superres import head_layer_names, superres_config
+from ..runtime.checkpoint import load_pytree
 from ..runtime.profiling import maybe_start_trace, stop_trace
 from ..setgan.dataset import ImageMultiSetGenerator, SafeClassImageDataset, build_datasets
 from ..setgan.loss import SetGANLossConfig
@@ -78,7 +85,7 @@ class SetGANCliOptions:
     seed: int = 0
     resume: Optional[str] = None
     ada_target: Optional[float] = None
-    generator_path: Optional[str] = None  # a converted generator (.npz)
+    generator_path: Optional[str] = None  # a converted generator (.npz) or a reference .pt
     superres: bool = False
     head_layers: int = 7
     up_factor: int = 2
@@ -117,17 +124,8 @@ def check_options(opts: SetGANCliOptions) -> None:
     if opts.devices is not None and opts.devices > 1:
         raise NotImplementedError("--devices > 1 needs the multi-card runtime "
                                   "(ROADMAP Queue 1 #10, slice 19)")
-    for flag, value in (("--superres", opts.superres), ("--path_stem", opts.path_stem),
-                        ("--encoder_path", opts.encoder_path)):
-        if value:
-            raise NotImplementedError(
-                f"{flag} needs models/sg3/superres.reinit_stem, which is not ported yet "
-                "(ROADMAP slice 18)")
-    if opts.generator_path and not opts.generator_path.endswith(".npz"):
-        raise NotImplementedError(
-            f"--generator_path {opts.generator_path}: give an .npz written by "
-            "stylegan3_editing_tpu_torch.scripts.convert_checkpoint (the SetGAN CLI's own "
-            ".pt and .pkl loading comes with ROADMAP slice 18)")
+    if opts.superres and not opts.path_stem:
+        raise ValueError("--superres needs --path_stem (a stem run's snapshot)")
     if opts.pl_weight > 0:
         raise NotImplementedError(
             "--pl_weight > 0 needs path-length regularisation: a double-differentiable "
@@ -142,7 +140,6 @@ def make_fid_eval_fn(opts: SetGANCliOptions, dataset) -> Callable[[SetGANTrainer
     references, and returns the ``fid_mode`` FID of InceptionV3's pool3
     features."""
     from ..models.backbones.inception import inception_feature_fn
-    from ..runtime.checkpoint import load_pytree
 
     variables = load_pytree(opts.inception_path)[0] if opts.inception_path else None
     feature_fn = inception_feature_fn(variables, device=opts.device)
@@ -164,10 +161,59 @@ def make_fid_eval_fn(opts: SetGANCliOptions, dataset) -> Callable[[SetGANTrainer
     return eval_fn
 
 
+def load_encoder_variables(path: str) -> dict:
+    """A pretrained ReStyle encoder's variables: a reference ``.pt``/``.pth``
+    (released ``restyle_{psp,e4e}`` weights, or the ``encoder.*`` keys of a
+    full-model checkpoint) through `convert_restyle_encoder_state`, else a
+    coach checkpoint's ``variables[col]["encoder"]`` subtrees."""
+    if path.endswith((".pt", ".pth")):
+        import torch
+
+        from ..models.encoders import (convert_restyle_encoder_state,
+                                       encoder_state_from_model_checkpoint)
+
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        return convert_restyle_encoder_state(encoder_state_from_model_checkpoint(ckpt))[0]
+    tree, _ = load_pytree(path)
+    src = tree.get("variables", tree)
+    return {col: src[col]["encoder"] for col in src
+            if isinstance(src[col], dict) and "encoder" in src[col]}
+
+
+def load_generator_variables(path: str, cfg: SG3Config) -> dict:
+    """A decoder's variables: an ``.npz`` from `convert_checkpoint`, else a
+    reference ``.pt`` state dict for ``cfg`` (`load_torch_pt`)."""
+    if path.endswith(".npz"):
+        return npz_to_variables(path)
+    return load_torch_pt(path, cfg)[0]
+
+
+def stem_config(opts: SetGANCliOptions, meta: Optional[dict]) -> SG3Config:
+    """The stem's config: the snapshot's ``decoder_cfg``, else (an older
+    snapshot) the CLI recipe at ``resolution // up_factor``."""
+    if meta and meta.get("decoder_cfg"):
+        fields = {f.name for f in dataclasses.fields(SG3Config)}  # a JAX snapshot adds `remat`
+        return SG3Config(**{k: tuple(v) if isinstance(v, list) else v
+                            for k, v in meta["decoder_cfg"].items() if k in fields})
+    return sg3_t_config(opts.resolution // opts.up_factor, channel_base=opts.cbase,
+                        channel_max=opts.cmax, num_layers=opts.syn_layers)
+
+
 def build_trainer(opts: SetGANCliOptions) -> SetGANTrainer:
     decoder_cfg = sg3_t_config(opts.resolution, channel_base=opts.cbase,
                                channel_max=opts.cmax, num_layers=opts.syn_layers)
-    gen_vars = npz_to_variables(opts.generator_path) if opts.generator_path else None
+    gen_vars = (load_generator_variables(opts.generator_path, decoder_cfg)
+                if opts.generator_path else None)
+    stem_vars, superres = None, {}
+    if opts.superres:
+        stem_tree, meta = load_pytree(opts.path_stem)
+        stem_cfg = stem_config(opts, meta)
+        decoder_cfg = superres_config(stem_cfg, opts.resolution, opts.head_layers)
+        stem_vars = {col: stem_tree["g_vars"][col]["decoder"]
+                     for col in ("params", "buffers", "ema") if col in stem_tree["g_vars"]}
+        superres = dict(train_head_only=True,
+                        head_layer_names=head_layer_names(decoder_cfg, stem_cfg))
+    enc_vars = load_encoder_variables(opts.encoder_path) if opts.encoder_path else None
     cfg = SetGANTrainConfig(
         total_kimg=opts.total_kimg, batch_size=opts.batch, g_lr=opts.glr, d_lr=opts.dlr,
         ema_kimg=opts.ema_kimg,
@@ -185,10 +231,11 @@ def build_trainer(opts: SetGANCliOptions) -> SetGANTrainer:
         g_remat_encoder=opts.g_remat_encoder, use_set_decoder=opts.use_set_decoder,
         use_temperature=opts.use_temperature, disable_style_concat=opts.disable_style_concat,
         mean_center=False if opts.no_mean_center else None, encoder_type=opts.encoder_type,
-        encoder_num_layers=opts.encoder_num_layers,
+        encoder_num_layers=opts.encoder_num_layers, **superres,
         loss=SetGANLossConfig(blur_init_sigma=opts.blur_init_sigma,
                               blur_fade_kimg=opts.blur_fade_kimg, pl_weight=opts.pl_weight))
     return SetGANTrainer(cfg, decoder_cfg, run_dir=opts.outdir, generator_variables=gen_vars,
+                         stem_variables=stem_vars, encoder_variables=enc_vars,
                          device=opts.device)
 
 

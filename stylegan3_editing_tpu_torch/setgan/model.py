@@ -10,10 +10,12 @@ renders the candidates. Sets are padded to a fixed size with a reference
 mask ``[B, R]`` (True = a real image), so a padded slot changes no
 candidate. ``restyle_mode="encoder"`` encodes [reference ‖ previous
 reconstruction] for ``restyle_iters`` residual steps from the average
-image. Built on the CUDA card unless ``device="cpu"``; on the card the
-decoder's filtered layers run the forward kernel (``impl="ref"``: the plain
-version). Parameters carry the flax names (``style_attn.attn_0.block_0…``,
-``encoder.trunk…``, ``decoder.synthesis…``), so
+image. The decoder is one of three stems (`make_stem`): the alias-free
+generator, StyleGAN2 or FastGAN. Built on the CUDA card unless
+``device="cpu"``; on the card the alias-free decoder's filtered layers run
+the forward kernel (``impl="ref"``: the plain version). Parameters carry
+the flax names (``style_attn.attn_0.block_0…``, ``encoder.trunk…``,
+``decoder.synthesis…``), so
 `models.sg3.load_jax_variables` fills a `SetGAN` from the JAX package's
 variables and `to_jax_variables` writes them back.
 """
@@ -31,20 +33,35 @@ from ..device import DeviceLike, fp32_matmul, resolve_device
 from ..models.encoders.restyle import ENCODER_TYPES
 from ..models.sg3.config import SG3Config
 from ..models.sg3.generator import Generator
-from ..ops.image import resize_bilinear
+from ..ops.image import adaptive_avg_pool2d, resize_bilinear
 from .set_transformer import SetTransformerDecoder
 
 
 def make_stem(stem: str, cfg: SG3Config, device: DeviceLike = None,
-              generator: Optional[torch.Generator] = None) -> Tuple[Generator, int]:
-    """The decoder stem and its number of W+ entries: ``"sg3"``, the
-    alias-free generator. The ``"sg2"`` and ``"fastgan"`` stems are not
-    ported yet and raise."""
+              generator: Optional[torch.Generator] = None) -> Tuple[nn.Module, int]:
+    """The decoder stem and its number of W+ entries: ``"sg3"`` (the
+    alias-free generator), ``"sg2"`` (the NVIDIA-convention StyleGAN2 of
+    StyleGAN-XL) or ``"fastgan"`` (FastGAN: no mapping, so ``w_dim`` must
+    equal ``z_dim``), each built from ``cfg`` as the JAX package maps it.
+    Every stem has `map` and `synthesize`."""
     if stem == "sg3":
         return Generator(cfg, device=device, generator=generator), cfg.num_ws
-    if stem in ("sg2", "fastgan"):
-        raise NotImplementedError(f"the {stem!r} stem of SetGAN is not ported yet "
-                                  "(ROADMAP Queue 1 #9)")
+    if stem == "sg2":
+        from ..models.sg2_stem import SG2Config, SG2Generator
+
+        sg2_cfg = SG2Config(z_dim=cfg.z_dim, w_dim=cfg.w_dim, img_resolution=cfg.img_resolution,
+                            img_channels=cfg.img_channels, channel_base=cfg.channel_base,
+                            channel_max=cfg.channel_max, use_bf16=cfg.use_bf16,
+                            conv_clamp=cfg.conv_clamp)
+        return SG2Generator(sg2_cfg, device=device, generator=generator), sg2_cfg.num_ws
+    if stem == "fastgan":
+        from ..models.fastgan import FastGANConfig, FastGANGenerator
+
+        if cfg.w_dim != cfg.z_dim:
+            raise ValueError("the fastgan stem has no mapping network: w_dim must equal z_dim")
+        fg_cfg = FastGANConfig(z_dim=cfg.z_dim, img_resolution=cfg.img_resolution,
+                               img_channels=cfg.img_channels)
+        return FastGANGenerator(fg_cfg, device=device, generator=generator), fg_cfg.num_ws
     raise ValueError(f"unknown stem {stem!r}")
 
 
@@ -123,7 +140,12 @@ class SetGAN(nn.Module):
     `load_jax_variables` fills them. ``encoder_num_layers`` sets the IR(-SE)
     trunk's depth (the ResNet families have one depth); ``remat_encoder``
     recomputes the encoder in the backward (`torch.utils.checkpoint`)
-    instead of keeping its activations.
+    instead of keeping its activations. With ``ref_resolution`` the
+    references are average-pooled to it before the encoder when they come at
+    another size (the superres recipe's 512² sets for a 256² encoder, whose
+    style heads reduce a 16² map; the JAX package raises there). The pooling
+    is the port's own choice: no code in the repository says how the
+    reference implementation brings such sets to its encoder.
     """
 
     def __init__(self, decoder_cfg: SG3Config, stem: str = "sg3", n_heads: int = 4,
@@ -131,8 +153,8 @@ class SetGAN(nn.Module):
                  use_temperature: bool = False, disable_style_concat: bool = False,
                  restyle_mode: str = "none", restyle_iters: int = 3,
                  encoder_type: str = "ProgressiveBackboneEncoder", encoder_num_layers: int = 50,
-                 remat_encoder: bool = False, device: DeviceLike = None,
-                 generator: Optional[torch.Generator] = None):
+                 remat_encoder: bool = False, ref_resolution: Optional[int] = None,
+                 device: DeviceLike = None, generator: Optional[torch.Generator] = None):
         super().__init__()
         if restyle_mode not in ("none", "encoder"):
             raise ValueError(f"restyle_mode must be 'none' or 'encoder', got {restyle_mode!r}")
@@ -141,7 +163,7 @@ class SetGAN(nn.Module):
             generator = torch.Generator().manual_seed(0)
         self.decoder_cfg, self.mean_center = decoder_cfg, mean_center
         self.restyle_mode, self.restyle_iters = restyle_mode, restyle_iters
-        self.remat_encoder = remat_encoder
+        self.remat_encoder, self.ref_resolution = remat_encoder, ref_resolution
         self.decoder, self._num_ws = make_stem(stem, decoder_cfg, device, generator)
         enc_kwargs = {} if "ResNet" in encoder_type else {"num_layers": encoder_num_layers}
         self.encoder = ENCODER_TYPES[encoder_type](
@@ -176,6 +198,8 @@ class SetGAN(nn.Module):
             raise ValueError("mean_center needs latent_avg")
 
         imgs = to_images(x)  # [B·R, H, W, 3]
+        if self.ref_resolution and imgs.shape[1] != self.ref_resolution:
+            imgs = adaptive_avg_pool2d(imgs, self.ref_resolution)
         if self.restyle_mode == "encoder":
             if latent_avg is None:
                 raise ValueError("restyle_mode='encoder' needs latent_avg")

@@ -27,7 +27,10 @@ ADA needs each step. The step's parts are profiler ranges (``Dmain``,
 times a tick reports as ``Timing/*``. ``train_step(batch, impl, z, draws)`` takes the noise
 and the augment draws from the caller, so a test can replay another run.
 Snapshots use the JAX package's numpy layout (`runtime.checkpoint`): G,
-D and G_ema as flax trees, and optax's Adam states.
+D and G_ema as flax trees, and optax's Adam states. ``stem_variables``
+(the superres phase's stem decoder) and ``encoder_variables`` (a
+pretrained ReStyle encoder) merge into G by name and shape through
+`models.sg3.superres.reinit_stem`; `carried` lists what each took.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from ..device import DeviceLike, resolve_device
 from ..models.sg3.config import SG3Config
 from ..models.sg3.from_jax import (adam_moments, load_jax_variables, optax_adam_state,
                                    to_jax_variables)
+from ..models.sg3.superres import matching_leaves, reinit_stem
 from ..runtime.checkpoint import load_pytree, save_pytree
 from ..runtime.profiling import drain_scope_times, profiled_scope
 from ..runtime.training_stats import StatsCollector
@@ -150,10 +154,6 @@ class SetGANTrainer:
                  encoder_variables: Optional[dict] = None, device: DeviceLike = None):
         if cfg.loss.pl_weight > 0:
             raise NotImplementedError(f"loss.pl_weight > 0 needs {PATH_LENGTH_ITEM}")
-        if stem_variables is not None or encoder_variables is not None:
-            raise NotImplementedError(
-                "stem_variables and encoder_variables merge pretrained weights through "
-                "models/sg3/superres.reinit_stem, which is not ported yet (ROADMAP slice 18)")
         self.device = resolve_device(device)
         self.cfg, self.decoder_cfg = cfg, decoder_cfg
         self.run_dir = Path(run_dir) if run_dir else None
@@ -171,10 +171,21 @@ class SetGANTrainer:
                         restyle_mode=cfg.restyle_mode, restyle_iters=cfg.restyle_iters,
                         encoder_type=cfg.encoder_type,
                         encoder_num_layers=cfg.encoder_num_layers,
-                        remat_encoder=cfg.g_remat_encoder, device=self.device,
+                        remat_encoder=cfg.g_remat_encoder, ref_resolution=cfg.ref_resolution,
+                        device=self.device,
                         generator=torch.Generator().manual_seed(cfg.seed)).eval()
         if generator_variables is not None:
             load_jax_variables(self.G.decoder, generator_variables)
+        # Pretrained weights merge by name and shape (`reinit_stem`): a grown
+        # decoder takes what matches of its stem, the encoder what matches of
+        # a ReStyle encoder (a 6-channel first conv skips in a 3-channel one).
+        self.carried: Dict[str, List[str]] = {}
+        for part, variables in (("decoder", stem_variables), ("encoder", encoder_variables)):
+            if variables is not None:
+                module = getattr(self.G, part)
+                tree = to_jax_variables(module)
+                self.carried[part] = matching_leaves(tree, variables)
+                load_jax_variables(module, reinit_stem(tree, variables))
         interp224 = cfg.d_interp224 if cfg.d_interp224 is not None \
             else decoder_cfg.img_resolution < 224
         self.D = ProjectedSetDiscriminator(

@@ -281,7 +281,7 @@ def _same_outputs(dst, jdst):
         np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
     meta, jmeta = (json.loads(Path(f"{p}.json").read_text()) for p in (dst, jdst))
     if "decoder_cfg" in jmeta:  # `remat` is an option of the JAX package alone
-        jmeta["decoder_cfg"].pop("remat")
+        jmeta["decoder_cfg"].pop("remat", None)
     assert {k: meta[k] for k in jmeta if k != "src"} == {k: v for k, v in jmeta.items()
                                                          if k != "src"}
     return meta
@@ -344,11 +344,57 @@ def test_convert_checkpoint_cli_encoder_matches_jax(source, tmp_path):
                                       gvars["ema"]["mapping"]["w_avg"])
 
 
-@pytest.mark.parametrize("kind,item", [("sg2_stem", "#9"), ("backbone", "#9"),
-                                       ("class_embedding", "#9")])
-def test_convert_checkpoint_names_what_the_other_kinds_wait_for(tmp_path, kind, item):
-    with pytest.raises(NotImplementedError, match=item):
-        convert_checkpoint.convert(str(tmp_path / "x.pt"), str(tmp_path / "y"), kind=kind)
+@pytest.mark.parametrize("kind", [pytest.param("sg2_stem", id="sg2_stem-#9"),
+                                  pytest.param("backbone", id="backbone-#9"),
+                                  pytest.param("class_embedding", id="class_embedding-#9")])
+def test_convert_checkpoint_names_what_the_other_kinds_wait_for(tmp_path, kind):
+    """The kinds that came with SetGAN's stems and growth: an SG2 stem state
+    dict in the reference's naming, a torchvision RegNetX-200MF state dict
+    (``--name regnetx_002``) and a pickled ``{"embed": nn.Embedding}``
+    convert to the JAX CLI's files, each tree equal to its source."""
+    from stylegan3_editing_tpu_torch.models.backbones import registry
+    from stylegan3_editing_tpu_torch.models.sg2_stem import SG2Config
+    from test_torch_feature_registry_convert import torch_state
+    from test_torch_sg2_stem import SLIM as SG2_SLIM
+    from test_torch_sg2_stem import sg2_reference_state
+
+    kw = {}
+    if kind == "sg2_stem":
+        overrides = {k: v for k, v in SG2_SLIM.items() if k != "img_resolution"}
+        state = sg2_reference_state(SG2Config(**SG2_SLIM, use_bf16=False))
+        torch.save({k: torch.from_numpy(np.asarray(v)) for k, v in state.items()},
+                   tmp_path / "src.pt")
+        src, kw = "src.pt", dict(res=SG2_SLIM["img_resolution"], cfg_overrides=overrides)
+    elif kind == "backbone":
+        port, _ = registry.make_feature_network("regnetx_002",
+                                                generator=torch.Generator().manual_seed(1))
+        state = torch_state("regnetx_002", port)
+        torch.save({k: torch.from_numpy(v) for k, v in state.items()}, tmp_path / "src.pt")
+        src, kw = "src.pt", dict(name="regnetx_002")
+    else:
+        emb = torch.nn.Embedding(10, 6)
+        with torch.no_grad():
+            emb.weight.copy_(torch.from_numpy(np.random.RandomState(3).randn(10, 6)))
+        with open(tmp_path / "src.pkl", "wb") as f:
+            pickle.dump({"embed": emb}, f)
+        src = "src.pkl"
+    meta = convert_checkpoint.convert(str(tmp_path / src), str(tmp_path / "port"), kind=kind,
+                                      **kw)
+    _jax_cli().convert(str(tmp_path / src), str(tmp_path / "jax"), kind=kind, **kw)
+    assert _same_outputs(tmp_path / "port", tmp_path / "jax") == meta and meta["kind"] == kind
+    got = convert.npz_to_variables(tmp_path / "port.npz")
+    if kind == "sg2_stem":
+        np.testing.assert_array_equal(got["params"]["b8"]["conv0"]["weight"],
+                                      state["synthesis.b8.conv0.weight"].transpose(2, 3, 1, 0))
+        np.testing.assert_array_equal(got["ema"]["mapping"]["w_avg"], state["mapping.w_avg"])
+    elif kind == "backbone":
+        net, _ = registry.make_feature_network("regnetx_002")
+        load_jax_variables(net, got)
+        assert sum(v.size for v in state.values()) == sum(
+            t.numel() for t in net.state_dict().values())
+    else:
+        np.testing.assert_array_equal(got["class_embedding"], emb.weight.detach().numpy())
+        assert meta["shape"] == [10, 6]
 
 
 def test_convert_checkpoint_runs_as_a_module(source, tmp_path):

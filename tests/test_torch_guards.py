@@ -238,6 +238,26 @@ def _conv_calls():
         x = leaf(2, 9, 10, 4)
         return upfirdn2d(x, hann_taps(4), up=2, down=2, padding=3), [x]
 
+    def modulated_up():
+        """The StyleGAN2 up-conv: the transposed conv (`device.conv_transpose2d`)."""
+        x, w, s = leaf(2, 5, 6, 4), leaf(3, 3, 4, 5), leaf(2, 4)
+        return modulated_conv2d(x, w, s, padding=2, up=2), [x, w, s]
+
+    def resample_up():
+        """`conv2d_resample`'s transposed path, grouped."""
+        from stylegan3_editing_tpu_torch.ops.conv2d_resample import conv2d_resample
+
+        x, w = leaf(2, 6, 7, 4), leaf(3, 3, 2, 6)
+        return conv2d_resample(x, w, f=hann_taps(4), up=2, padding=1, groups=2), [x, w]
+
+    def fastgan():
+        """FastGAN's init (a transposed conv of the 1×1 input) and its convs."""
+        from stylegan3_editing_tpu_torch.models.fastgan import FastGANConfig, FastGANGenerator
+
+        z = leaf(2, 8)
+        net = FastGANGenerator(FastGANConfig(z_dim=8, img_resolution=16, ngf=8), device="cpu")
+        return net(z), [z, net.init.weight]
+
     def mapper_step():
         """One StyleCLIP mapper step's loss on a slim decoder with a small
         CLIP and the 8-layer IR-SE trunk: the gradient to the mapper runs
@@ -346,7 +366,9 @@ def _conv_calls():
             "styleclip_mapper_step": mapper_step, "restyle_coach_step": restyle_coach_step,
             "squeezenet": squeezenet, "msssim": ms_ssim, "deit": deit,
             "efficientnet_b0": efficientnet, "set_discriminator": set_discriminator,
-            "inception_v3": inception, "mobilenet_v2": mobilenet_v2}
+            "inception_v3": inception, "mobilenet_v2": mobilenet_v2,
+            "modulated_conv2d_up2": modulated_up, "conv2d_resample_up": resample_up,
+            "fastgan": fastgan}
 
 
 @pytest.mark.parametrize("op", sorted(_conv_calls()))
@@ -771,6 +793,44 @@ def test_setgan_training_modules_import_without_optional_packages():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_stems_and_growth_modules_import_without_optional_packages():
+    """The other stems, the rosinality StyleGAN2, `conv2d_resample`, the
+    superres growth and the native preprocessor import with JAX, Pillow and
+    scipy unavailable and leave JAX unloaded."""
+    blocked = ("PIL", "imageio", "scipy", "sklearn", "cv2", "orbax", "jax", "flax")
+    code = ("import sys, json\n"
+            f"for name in {blocked!r}:\n"
+            "    sys.modules[name] = None\n"
+            "import stylegan3_editing_tpu_torch.models.sg2_stem, "
+            "stylegan3_editing_tpu_torch.models.fastgan, "
+            "stylegan3_editing_tpu_torch.models.stylegan2, "
+            "stylegan3_editing_tpu_torch.models.sg3.superres, "
+            "stylegan3_editing_tpu_torch.ops.conv2d_resample, "
+            "stylegan3_editing_tpu_torch.data.native, "
+            "stylegan3_editing_tpu_torch.scripts.convert_checkpoint\n"
+            "print(json.dumps(sorted(m for m in sys.modules if sys.modules[m] is not None "
+            f"and m.split('.')[0] in {blocked + ('stylegan3_editing_tpu',)!r})))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("entry", ["sg2_stem", "fastgan", "stylegan2_g", "stylegan2_d"])
+def test_stems_raise_without_a_card(monkeypatch, entry):
+    """The new generators and the discriminator are built on the card unless
+    ``device="cpu"``: without one they raise."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from stylegan3_editing_tpu_torch.models import fastgan, sg2_stem, stylegan2
+
+    call = {"sg2_stem": lambda: sg2_stem.SG2Generator(sg2_stem.SG2Config(img_resolution=8)),
+            "fastgan": lambda: fastgan.FastGANGenerator(fastgan.FastGANConfig(img_resolution=8)),
+            "stylegan2_g": lambda: stylegan2.SG2Generator(size=8, style_dim=8, n_mlp=1),
+            "stylegan2_d": lambda: stylegan2.SG2Discriminator(size=8)}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call[entry]()
 
 
 @pytest.mark.parametrize("entry", ["train_setgan", "trainer", "discriminator"])

@@ -102,7 +102,8 @@ def test_flrelu_backward_sass_holds_bf16_tensor_core_instructions(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("op", ["modulated_conv2d_3x3", "alexnet_Conv2d"])
+@pytest.mark.parametrize("op", ["modulated_conv2d_3x3", "alexnet_Conv2d",
+                                "modulated_conv2d_up2"])
 def test_convs_are_full_fp32_under_pytorchs_tf32_default(cuda_device, op):
     """With PyTorch's default (cuDNN may use TF32), the port's fp32 convs on
     the card, and their gradients (x and the weights; the styles of the
@@ -110,15 +111,20 @@ def test_convs_are_full_fp32_under_pytorchs_tf32_default(cuda_device, op):
     on the CPU to 1e-5 of max |ref| each: 576 to 2048 products per output,
     so TF32's 2^-11 operands would miss it by one to two orders. The
     backward runs inside ``backward()``, after the forward call has
-    returned. The fixture's setting comes back after the test."""
+    returned. ``modulated_conv2d_up2`` is the StyleGAN2 up-conv, a transposed
+    conv (`device.conv_transpose2d`). The fixture's setting comes back after
+    the test."""
     rng = np.random.RandomState(13)
     x, g = rng.randn(2, 32, 32, 64), rng.randn(2, 32, 32, 64)
-    if op == "modulated_conv2d_3x3":
+    if op.startswith("modulated_conv2d"):
         w, s = rng.randn(3, 3, 64, 64), rng.randn(2, 64)
+        up = 2 if op.endswith("up2") else 1
+        if up == 2:
+            g = rng.randn(2, 65, 65, 64)
 
         def run(device, dtype):
             leaves = [torch.from_numpy(a).to(device, dtype).requires_grad_() for a in (x, w, s)]
-            out = modulated_conv2d(*leaves, padding=1)
+            out = modulated_conv2d(*leaves, padding=up, up=up)
             (out * torch.from_numpy(g).to(device, dtype)).sum().backward()
             return [out] + [t.grad for t in leaves]
     else:
@@ -194,6 +200,42 @@ def test_flrelu_bwd_kernel_matches_plain(cuda_device, name, dtype):
     assert got.dtype == dt and got.shape == x.shape
     atol, rtol = (1e-4, 1e-4) if dtype == "float32" else (1e-3, 2 ** -8)
     torch.testing.assert_close(got.float(), ref, atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grown_decoder_layer_through_both_kernels(cuda_device, dtype):
+    """SetGAN's superres decoder (`train_setgan_superres.sh`: SG3-T 256 grown
+    to 512 with 4 head layers) gives the kernels shapes no other path does:
+    L8 takes 276² at up 4 to a 532² grid with 55 channels. Both kernels at full size,
+    batch 2, against the plain versions at `test_flrelu_kernel_matches_plain`'s
+    and `test_flrelu_bwd_kernel_matches_plain`'s tolerances."""
+    from stylegan3_editing_tpu_torch.models.sg3.superres import superres_config
+
+    cfg = superres_config(sg3_t_config(256, channel_base=16384, channel_max=256, num_layers=7),
+                          512, 4)
+    s = next(spec for spec in build_synthesis_layout(cfg).layers if spec.name == "L8_532_55")
+    assert s.up_factor == 4 and s.out_channels == 55 and s.in_size == (276, 276)
+    rng = np.random.RandomState(18)
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.randn(2, 276, 276, 55).astype(np.float32) * 60).to(cuda_device, dt)
+    b = torch.from_numpy(rng.randn(55).astype(np.float32)).to(cuda_device, dt)
+    kw = dict(fu=s.up_filter, fd=s.down_filter, up=s.up_factor, down=s.down_factor,
+              padding=s.padding, clamp=s.conv_clamp)
+    with torch.no_grad():
+        got = filtered_lrelu(x, b=b, **kw)
+        ref = filtered_lrelu(x.float(), b=b.float(), impl="ref", **kw)
+    assert got.shape == ref.shape and got.shape[1] > 500
+    atol, rtol = (1e-4, 1e-4) if dtype == "float32" else (1e-3, 2 ** -8)
+    torch.testing.assert_close(got.float(), ref, atol=atol, rtol=rtol)
+    dy = torch.from_numpy(rng.randn(*got.shape).astype(np.float32)).to(cuda_device, dt)
+    dx = flrelu_cuda.filtered_lrelu_bwd_cuda(dy, x, s.up_filter, s.down_filter, b, s.up_factor,
+                                             s.padding, 2 ** 0.5, 0.2, s.conv_clamp)
+    dx_ref = filtered_lrelu_bwd_ref(dy.float(), x.float(), s.up_filter, s.down_filter, b.float(),
+                                    s.up_factor, s.padding, clamp=s.conv_clamp)
+    torch.cuda.synchronize()
+    assert dx.dtype == dt
+    torch.testing.assert_close(dx.float(), dx_ref, atol=atol, rtol=rtol)
 
 
 def _odd_view(a, device, dtype):

@@ -196,8 +196,27 @@ def test_setgan_padded_reference_changes_nothing():
 
 @pytest.mark.parametrize("stem", ["sg2", "fastgan"])
 def test_other_stems_raise(stem):
-    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
-        make_stem(stem, SG3Config(**TINY), device="cpu")
+    """The ``"sg2"`` and ``"fastgan"`` stems build and render through the
+    encoder and the style attention (FastGAN: one W entry, no
+    mean-centring, a zero ``latent_avg``); an unknown stem raises. Their
+    parity with the JAX stems is in `test_torch_sg2_stem.py` and
+    `test_torch_fastgan.py`."""
+    from stylegan3_editing_tpu_torch.models.fastgan import FastGANGenerator
+    from stylegan3_editing_tpu_torch.models.sg2_stem import SG2Generator
+
+    decoder, n_ws = make_stem(stem, SG3Config(**TINY), device="cpu")
+    assert isinstance(decoder, SG2Generator if stem == "sg2" else FastGANGenerator)
+    assert n_ws == (8 if stem == "sg2" else 1)
+    model = SetGAN(SG3Config(**TINY), stem=stem, attn_layers=1, encoder_num_layers=8,
+                   mean_center=stem == "sg2", device="cpu").eval()
+    x, z, mask = inputs(3)
+    latent_avg = (model.decoder.mapping.w_avg if stem == "sg2"
+                  else torch.zeros(TINY.get("w_dim", 512)))
+    with torch.no_grad():
+        imgs, lat = model(torch.from_numpy(x), torch.from_numpy(z), latent_avg=latent_avg,
+                          ref_mask=torch.from_numpy(mask), return_latents=True)
+    assert imgs.shape == (B, C, 32, 32, 3) and lat.shape == (B, C, n_ws, 512)
+    assert torch.isfinite(imgs).all() and model.n_styles == n_ws
     with pytest.raises(ValueError):
         make_stem("nope", SG3Config(**TINY), device="cpu")
 

@@ -55,8 +55,15 @@ def test_path_length_weight_raises():
     with pytest.raises(NotImplementedError, match="path-length regularisation"):
         SetGANTrainer(SetGANTrainConfig(**CFG, loss=SetGANLossConfig(pl_weight=2.0)),
                       SG3Config(**SLIM), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 18"):
-        SetGANTrainer(port_config(), SG3Config(**SLIM), device="cpu", stem_variables={})
+    # A stem tree merges by name and shape: the matching leaf is carried, a
+    # leaf of another shape and an unknown name are not.
+    fc0 = np.random.RandomState(2).randn(Z_DIM, Z_DIM).astype(np.float32)
+    stem = {"params": {"mapping": {"fc0": {"weight": fc0, "bias": np.zeros(3, np.float32)}},
+                       "nope": {"weight": fc0}}}
+    tr = SetGANTrainer(port_config(), SG3Config(**SLIM), device="cpu", stem_variables=stem)
+    assert tr.carried == {"decoder": ["params/mapping/fc0/weight"]}
+    for module in (tr.G, tr.G_ema):
+        np.testing.assert_array_equal(module.decoder.mapping.fc0.weight.detach().numpy(), fc0)
 
 
 @pytest.mark.parametrize("mode", ["pretrained", "head_only"])
@@ -165,21 +172,126 @@ def test_train_setgan_cli_on_the_cpu(class_folder, tmp_path, monkeypatch):
         assert torch.equal(a, b), n
 
 
+@pytest.fixture(scope="module")
+def pretrained_files(tmp_path_factory):
+    """What the superres and pretrained phases read, at `CLI_ARGS`' sizes
+    with 64-wide latents: a stem run's snapshot at 32² (the CLI's trainer,
+    not stepped), a coach checkpoint holding a ReStyle encoder (the 8-layer
+    trunk with ReStyle's 6-channel first conv, seeded apart from the CLI's),
+    and the 64² decoder as a reference ``.pt`` state dict."""
+    from chip_smoke import reference_state
+    from stylegan3_editing_tpu_torch.models.encoders import ProgressiveBackboneEncoder
+    from stylegan3_editing_tpu_torch.models.sg3 import Generator, to_jax_variables
+    from stylegan3_editing_tpu_torch.runtime.checkpoint import save_pytree
+    from stylegan3_editing_tpu_torch.scripts import train_setgan
+
+    root = tmp_path_factory.mktemp("pretrained")
+    with pytest.MonkeyPatch.context() as mp:
+        sg3_t_config = train_setgan.sg3_t_config
+        mp.setattr(train_setgan, "sg3_t_config",
+                   lambda *a, **kw: sg3_t_config(*a, **kw, z_dim=Z_DIM, w_dim=Z_DIM))
+        opts = train_setgan.parse_dataclass(train_setgan.SetGANCliOptions, [
+            "--device", "cpu", "--fid", "false", "--seed", "5", *CLI_ARGS, "--resolution", "32"])
+        stem = train_setgan.build_trainer(opts)
+        stem.snapshot(root / "stem")
+        cfg = train_setgan.sg3_t_config(64, channel_base=1024, channel_max=32, num_layers=4)
+    enc = ProgressiveBackboneEncoder(n_styles=cfg.num_ws, style_dim=Z_DIM, num_layers=8,
+                                     generator=torch.Generator().manual_seed(6))
+    enc_vars = to_jax_variables(enc)
+    save_pytree(root / "coach", {"variables": {c: {"encoder": t} for c, t in enc_vars.items()}},
+                {"opts": {}})
+    gen = Generator(cfg, device="cpu", generator=torch.Generator().manual_seed(7))
+    torch.save(reference_state(gen), root / "G.pt")
+    return {"stem": root / "stem", "stem_trainer": stem, "coach": root / "coach",
+            "enc_vars": enc_vars, "G.pt": root / "G.pt", "gen": gen}
+
+
 @pytest.mark.parametrize("flags,match", [
-    (["--fid", "false", "--superres", "true"], "slice 18"),
-    (["--fid", "false", "--encoder_path", "enc"], "slice 18"),
-    (["--fid", "false", "--generator_path", "G.pt"], "convert_checkpoint"),
-    (["--fid", "false", "--devices", "2"], "#10"),
-    (["--fid", "false", "--pl_weight", "2"], "path-length regularisation")])
-def test_train_setgan_refuses_what_is_not_ported(class_folder, tmp_path, flags, match):
-    """Refused before any work: nothing is written."""
+    pytest.param(["--fid", "false", "--superres", "true"], "superres", id="flags0-slice 18"),
+    pytest.param(["--fid", "false", "--encoder_path", "enc"], "encoder", id="flags1-slice 18"),
+    pytest.param(["--fid", "false", "--generator_path", "G.pt"], "generator",
+                 id="flags2-convert_checkpoint"),
+    pytest.param(["--fid", "false", "--devices", "2"], "#10", id="flags3-#10"),
+    pytest.param(["--fid", "false", "--pl_weight", "2"], "path-length regularisation",
+                 id="flags4-path-length regularisation")])
+def test_train_setgan_refuses_what_is_not_ported(class_folder, tmp_path, flags, match,
+                                                 pretrained_files, monkeypatch):
+    """``--devices 2`` and ``--pl_weight 2`` are refused before any work:
+    nothing is written. The superres phase runs: ``--superres true
+    --path_stem`` grows the 32² stem to 64² with 2 head layers, carries the
+    mapping, the input and L0 among others (their values after a step
+    still the stem's, being frozen) and trains the head layers only; ``--encoder_path``
+    (a coach checkpoint) and a reference ``.pt`` ``--generator_path`` load
+    into G and G_ema."""
+    from stylegan3_editing_tpu_torch.models.sg3 import to_jax_variables
     from stylegan3_editing_tpu_torch.scripts import train_setgan
 
     out = tmp_path / "run"
-    with pytest.raises(NotImplementedError, match=match):
-        train_setgan.cli(["--data", str(class_folder), "--outdir", str(out), "--device", "cpu",
-                          *flags])
-    assert not out.exists()
+    argv = ["--data", str(class_folder), "--outdir", str(out), "--device", "cpu", *flags]
+    if match in ("#10", "path-length regularisation"):
+        with pytest.raises(NotImplementedError, match=match):
+            train_setgan.cli(argv)
+        assert not out.exists()
+        return
+    sg3_t_config = train_setgan.sg3_t_config
+    monkeypatch.setattr(train_setgan, "sg3_t_config",
+                        lambda *a, **kw: sg3_t_config(*a, **kw, z_dim=Z_DIM, w_dim=Z_DIM))
+    slim = [a for a in CLI_ARGS]
+    slim[slim.index("--total_kimg") + 1], slim[slim.index("--snapshot_ticks") + 1] = "0.002", "9"
+    if match == "superres":
+        with pytest.raises(ValueError, match="--path_stem"):
+            train_setgan.cli(argv + slim)
+        trainer = train_setgan.cli(argv + slim + ["--path_stem", str(pretrained_files["stem"]),
+                                                  "--up_factor", "2", "--head_layers", "2"])
+        assert trainer.cur_nimg == 2 and trainer.decoder_cfg.img_resolution == 64
+        assert trainer.cfg.train_head_only and len(trainer.cfg.head_layer_names) == 5
+        carried = trainer.carried["decoder"]
+        assert {"fc0", "fc1", "w_avg", "input", "L0_36_32"} <= {p.split("/")[2]
+                                                                for p in carried}, carried
+        stem = to_jax_variables(pretrained_files["stem_trainer"].G.decoder)
+        now = to_jax_variables(trainer.G.decoder)
+        for path in carried:
+            if path.split("/")[2] in trainer.cfg.head_layer_names:
+                continue  # a head layer of the stem's name: carried, then trained
+            col, *keys = path.split("/")
+            a, b = stem[col], now[col]
+            for k in keys:
+                a, b = a[k], b[k]
+            np.testing.assert_array_equal(b, a, err_msg=path)
+        trains = {n.split(".")[2] for n in trainer.g_params if n.startswith("decoder.")}
+        assert trains == set(trainer.cfg.head_layer_names)
+        return
+    if match == "encoder":
+        argv[argv.index("enc")] = str(pretrained_files["coach"])
+    else:
+        argv[argv.index("G.pt")] = str(pretrained_files["G.pt"])
+    trainer = train_setgan.build_trainer(train_setgan.parse_dataclass(
+        train_setgan.SetGANCliOptions, argv + slim))
+    for module in (trainer.G, trainer.G_ema):
+        if match == "encoder":
+            first = "params/trunk/input_conv/kernel"
+            want = _port_flat(pretrained_files["enc_vars"])
+            assert sorted(trainer.carried["encoder"]) == sorted(set(want) - {first})
+            assert want[first].shape[2] == 6 and module.encoder.trunk.input_conv.kernel.shape[2] == 3
+            got = to_jax_variables(module.encoder)
+            want = {k: v for k, v in pretrained_files["enc_vars"].items()}
+        else:
+            got = to_jax_variables(module.decoder)
+            want = to_jax_variables(pretrained_files["gen"])
+        flat_got, flat_want = _port_flat(got), _port_flat(want)
+        assert flat_got.keys() == flat_want.keys()
+        for k, v in flat_want.items():
+            if match == "encoder" and k == first:
+                continue
+            np.testing.assert_array_equal(flat_got[k], v, err_msg=k)
+
+
+def _port_flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}/{k}" if prefix else k
+        out.update(_port_flat(v, name) if isinstance(v, dict) else {name: np.asarray(v)})
+    return out
 
 
 def test_train_ticks_run_eval_fn_and_keep_the_best(tmp_path):
